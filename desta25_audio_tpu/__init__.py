@@ -1,4 +1,4 @@
-"""desta25_audio_tpu — TPU-native DeSTA2.5-Audio framework.
+"""desta25_audio_tpu — DeSTA2.5-Audio in JAX.
 
 Public surface mirrors the reference package export
 (``from desta import DeSTA25AudioModel``, desta/__init__.py:1-3).

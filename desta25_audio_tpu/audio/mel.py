@@ -7,12 +7,12 @@ window, center-reflect padding, power spectrum, slaney-normalized mel
 filterbank (80 or 128 mels, fmax 8 kHz), log10 with 1e-10 clamp, per-sample
 dynamic-range clamp to max-8, then ``(x + 4) / 4``.
 
-Design is GEMM-native for the MXU ("MelT"-style): audio is reshaped to
+Design is GEMM-native ("MelT"-style): audio is reshaped to
 hop-sized rows; because n_fft = 2.5 * hop, every frame is a concatenation of
 three row slices, so ``frames @ DFT`` factors into three dense matmuls with
 static shapes and no gather.  The window is folded into the DFT matrices.
-``log_mel`` below is the jnp oracle; the fused Pallas kernel lives in
-``ops/mel_pallas.py`` and is validated against it.
+``log_mel`` is the device frontend; ``log_mel_np_precise`` is its float64
+host reference.
 """
 
 from __future__ import annotations
@@ -198,7 +198,7 @@ def log_mel_np(audio: np.ndarray, num_mel_bins: int) -> np.ndarray:
 def log_mel_np_precise(audio: np.ndarray, num_mel_bins: int) -> np.ndarray:
     """Float64 host path, bit-comparable to HF WhisperFeatureExtractor.
 
-    The jnp/Pallas paths run in float32 (TPU has no f64); cancellation in the
+    The device path runs in float32; cancellation in the
     DFT at near-floor energy bins makes them diverge from the f64 reference by
     up to ~0.1 in normalized log-mel units *at bins within 8 decades of the
     per-clip max*; mean divergence is <5e-4 and encoder-output impact is

@@ -9,7 +9,7 @@ Offline default here is an energy+spectral VAD with hangover smoothing; a
 real silero model takes over when staged (``scripts/fetch_silero.py``):
 ``DESTA_SILERO_JIT`` (TorchScript export — preferred, torch is in-image)
 or ``DESTA_SILERO_ONNX`` (needs onnxruntime).  VAD gates host control
-flow, not device math, so it stays off the TPU.
+flow, not device math, so it stays off the accelerator.
 
 Failure economics (why the heuristic is deliberately RECALL-biased, and
 tested so on the reference's real clips — tests/test_vad_real_clips.py):

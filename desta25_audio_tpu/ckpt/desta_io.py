@@ -200,11 +200,12 @@ def load_frozen_tower(tower: str, model_id: str, weights_root: str,
     """Load a frozen tower from ``weights_root/<model_id>/``.
 
     Prefers the staged native format written by the ``hf_convert`` CLI
-    (``desta_tpu.safetensors`` / ``desta_tpu_int8.safetensors``); falls back
-    to converting raw HF-layout ``*.safetensors`` shards in place.  All
-    conversion work runs on the host CPU device — the f32 intermediates of
-    an 8B conversion must never land on a 16 GB chip — and the finished
-    tree is device_put to the default device once.
+    (``desta_native.safetensors`` / ``desta_native_int8.safetensors``);
+    falls back to converting raw HF-layout ``*.safetensors`` shards in
+    place.  All conversion work runs on the host CPU device, so the f32
+    intermediates of an 8B conversion never take device memory.  The
+    finished tree goes to the devices once: sharded by the tower's
+    partition specs when a mesh is active, else onto the default device.
     """
     import jax
 
@@ -219,8 +220,8 @@ def load_frozen_tower(tower: str, model_id: str, weights_root: str,
         return None
 
     want_int8 = tower == "llm" and quant == "int8"
-    native_q = os.path.join(path, "desta_tpu_int8.safetensors")
-    native = os.path.join(path, "desta_tpu.safetensors")
+    native_q = os.path.join(path, "desta_native_int8.safetensors")
+    native = os.path.join(path, "desta_native.safetensors")
     cpu = jax.devices("cpu")[0]
 
     if want_int8 and os.path.exists(native_q):
@@ -254,7 +255,14 @@ def load_frozen_tower(tower: str, model_id: str, weights_root: str,
         with jax.default_device(cpu):
             tree = dict(tree)
             tree["encoder"] = quantize_encoder_params(tree["encoder"])
-    dev = jax.devices()[0]
-    if dev.platform != "cpu":
-        tree = jax.device_put(tree, dev)
-    return jax.tree.map(jnp.asarray, tree)
+    from ..parallel.mesh import current_mesh
+    if current_mesh() is not None:
+        from ..parallel.sharding import (
+            apply_sharding,
+            llm_partition_specs,
+            whisper_partition_specs,
+        )
+        specs = (llm_partition_specs if tower == "llm"
+                 else whisper_partition_specs)(tree)
+        return apply_sharding(tree, specs)
+    return jax.device_put(jax.tree.map(jnp.asarray, tree), jax.devices()[0])

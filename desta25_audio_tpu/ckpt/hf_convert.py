@@ -334,11 +334,11 @@ def stage_checkpoint(src: str, weights_root: str,
                      dtype: str = "bfloat16") -> str:
     """Convert an HF snapshot dir into the native staged layout.
 
-    Writes ``weights_root/<model_id>/desta_tpu.safetensors`` (flat native
-    tree, bf16/f32) and optionally ``desta_tpu_int8.safetensors``
+    Writes ``weights_root/<model_id>/desta_native.safetensors`` (flat native
+    tree, bf16/f32) and optionally ``desta_native_int8.safetensors``
     (pre-quantized LLM), plus the source ``config.json`` for provenance.
-    Conversion runs on the host CPU device — an 8B f32 intermediate must
-    never land on a 16 GB chip.
+    Conversion runs on the host CPU device, so the 32 GB f32 intermediate
+    of an 8B tower never occupies device memory.
     """
     import shutil
 
@@ -379,10 +379,10 @@ def stage_checkpoint(src: str, weights_root: str,
             qtree = quantize_llm_params(tree)
             qtree = jax.tree.map(np.asarray, qtree)
         save_tree_safetensors(
-            qtree, os.path.join(dst, "desta_tpu_int8.safetensors"))
-        print(f"wrote {dst}/desta_tpu_int8.safetensors")
+            qtree, os.path.join(dst, "desta_native_int8.safetensors"))
+        print(f"wrote {dst}/desta_native_int8.safetensors")
     save_tree_safetensors(jax.tree.map(np.asarray, tree),
-                          os.path.join(dst, "desta_tpu.safetensors"))
+                          os.path.join(dst, "desta_native.safetensors"))
     print(f"staged {kind} {model_id}: {n_params/1e9:.2f}B params -> {dst}")
     return model_id
 
@@ -393,7 +393,7 @@ def _cli():
         prog="python -m desta25_audio_tpu.ckpt.hf_convert",
         description="Stage a local HF snapshot (config.json + *.safetensors)"
                     " into the native weights_root layout used by"
-                    " DeSTA25AudioModel.from_pretrained / DESTA_TPU_WEIGHTS.")
+                    " DeSTA25AudioModel.from_pretrained / DESTA_WEIGHTS.")
     p.add_argument("src", help="HF snapshot dir (hub download of the"
                    " frozen tower, e.g. openai/whisper-large-v3)")
     p.add_argument("weights_root", help="destination root; towers land at"

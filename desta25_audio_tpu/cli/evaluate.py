@@ -75,6 +75,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
+    from ..utils.compilation_cache import setup_compilation_cache
+    setup_compilation_cache()
 
     overrides = parse_overrides(args.override)
 

@@ -37,6 +37,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
+    from ..utils.compilation_cache import setup_compilation_cache
+    setup_compilation_cache()
     from ..models.desta import DeSTA25AudioModel
     model = DeSTA25AudioModel.from_pretrained(args.model)
 

@@ -1,4 +1,4 @@
-"""Configuration system for the DeSTA2.5-Audio TPU framework.
+"""Configuration system for the DeSTA2.5-Audio framework.
 
 Mirrors the reference config surface (``desta/models/modeling_desta25.py:633-694``,
 ``DeSTA25Config``) but is hub-free: model hyper-parameters for the known
@@ -244,8 +244,8 @@ _LLM_PRESETS: Dict[str, Dict[str, Any]] = {
         chat_template="llama3",
     ),
     "test/llama-nano128": dict(
-        # fused-decode-compatible nano (Dh=128, D % 256 == 0): exercises
-        # the single-kernel decode / spec-verify paths in CI
+        # nano with the flagships' head dim (Dh=128): decode, verify
+        # and injection tests at the real per-head width
         vocab_size=512, hidden_size=512, intermediate_size=768,
         num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
         head_dim=128, rope_theta=10000.0, rope_scaling=None,
@@ -336,36 +336,36 @@ class DeSTA25Config:
     orca_align_weight_local: float = 0.05
     # Param dtype for the deep-injection cross-attn stack.  f32 matches
     # the reference; "bfloat16" halves params, grad temporaries AND
-    # optimizer stats (4*d_model^2 per LLM layer — the difference
-    # between fitting and OOM for large-backbone ORCA on one 16 GB
-    # chip, see docs/perf_roofline.md section 4).  Trade-off: optax
+    # optimizer stats (4*d_model^2 per LLM layer).  Trade-off: optax
     # stores adafactor's factored second moments in the param dtype, so
     # bf16 also coarsens the optimizer statistics — prefer f32 + a
-    # "data"-sharded mesh when more than one chip is available.
+    # "data"-sharded mesh when more than one device is available.
     orca_xattn_dtype: str = "float32"
 
     # Compute dtype for the frozen towers ("bfloat16" | "float32").
     dtype: str = "bfloat16"
-    # Weight-only quantization for the frozen LLM ("none" | "int8").
-    # int8 is the only way the 8B flagship fits one 16 GB v5e chip; decode
-    # routes through the fused Pallas dequant kernel (ops/fused_decode.py).
+    # Weight-only quantization for the frozen LLM ("none" | "int8"):
+    # halves the weight bytes each decode step reads (ops/quant.py).
     llm_quant: str = "none"
     # Activation-dynamic int8 for the frozen whisper encoder ("auto" |
-    # "none" | "int8"): int8xint8 MXU matmuls (~2x bf16 on v5e) with
-    # per-token activation scales (W8A8 fused kernels, numerics <=2% of
+    # "none" | "int8"): int8 x int8 matmuls (twice the bf16 tensor-core
+    # rate) with per-token activation scales (W8A8, numerics <=2% of
     # scale).  "auto" (default) resolves to int8 at the inference
-    # entrypoints (from_pretrained -> generate/serve/evaluate; encoder
-    # fwd B=1 18.8 -> 13.8 ms, the TTFT lever) and to none for training
+    # entrypoints (from_pretrained -> generate/serve/evaluate) and to
+    # none for training
     # and direct construction, so training numerics and parity tests
     # match the bf16 reference.  The encoder never trains either way.
     encoder_quant: str = "auto"
     # Weight-only int8 for the ORCA gated cross-attention stack ("none"
     # | "int8").  INFERENCE ONLY (the stack normally trains): halves
-    # the per-step injection weight stream AND lets the gated
-    # cross-attention run inside the fused decode kernel
-    # (ops/fused_decode fused_injection), which also re-opens
-    # speculative decoding for ORCA models.
+    # the per-step injection weight stream.
     orca_xattn_quant: str = "none"
+    # Depth cuts (None = the preset's depth): fewer LLM decoder layers /
+    # Whisper encoder layers at the preset's widths, for smoke runs and
+    # compile checks with random weights.  The connector's encoder taps
+    # keep their relative depths.
+    llm_num_hidden_layers: Optional[int] = None
+    encoder_num_layers: Optional[int] = None
 
     def resolved_encoder_quant(self, inference: bool) -> str:
         """Resolve encoder_quant="auto": int8 on the inference path
@@ -381,11 +381,19 @@ class DeSTA25Config:
 
     @property
     def llm_config(self) -> LLMConfig:
-        return llm_config_for(self.llm_model_id)
+        cfg = llm_config_for(self.llm_model_id)
+        if self.llm_num_hidden_layers:
+            cfg = dataclasses.replace(
+                cfg, num_hidden_layers=self.llm_num_hidden_layers)
+        return cfg
 
     @property
     def encoder_config(self) -> WhisperConfig:
-        return whisper_config_for(self.encoder_model_id)
+        cfg = whisper_config_for(self.encoder_model_id)
+        if self.encoder_num_layers:
+            cfg = dataclasses.replace(cfg,
+                                      encoder_layers=self.encoder_num_layers)
+        return cfg
 
     @property
     def is_orca(self) -> bool:
@@ -399,7 +407,16 @@ class DeSTA25Config:
             raise NotImplementedError(
                 f"no target layer table for {self.encoder_model_id!r}"
             )
-        return TARGET_LAYER_IDS[self.encoder_model_id]
+        taps = TARGET_LAYER_IDS[self.encoder_model_id]
+        full = whisper_config_for(self.encoder_model_id).encoder_layers
+        n = self.encoder_config.encoder_layers
+        if n == full:
+            return taps
+        cut = tuple(round((t + 1) * n / full) - 1 for t in taps)
+        if len(set(cut)) != len(taps) or min(cut) < 0:
+            raise ValueError(f"encoder_num_layers={n} cannot hold the "
+                             f"{len(taps)} connector taps {taps}")
+        return cut
 
     @property
     def audio_token_size(self) -> int:

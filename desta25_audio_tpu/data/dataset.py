@@ -1,11 +1,11 @@
-"""JSONL audio-text dataset + TPU-shaped collation.
+"""JSONL audio-text dataset + fixed-shape collation.
 
 Reference: ``BaseAudioTextDataset`` / ``BaseCollateFn``
 (desta/trainer/data/simple_dataset.py).  Schema (prompt-only mode,
 simple_dataset.py:306-320): fields ``id`` (relative audio path), ``prompt``,
 ``response``; ``messages``/``seed_description`` are ignored.
 
-Design differences (deliberate, TPU-first):
+Design differences (deliberate: static shapes for jit):
 
 - Preprocessing (chat template + placeholder expansion) is *lazy and
   deterministic* per item — no rank-0 save_to_disk / lock-file barrier

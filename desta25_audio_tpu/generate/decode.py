@@ -41,16 +41,13 @@ WHISPER_NON_SPEECH_TOKEN_IDS = (
 WHISPER_BEGIN_SUPPRESS_TOKEN_IDS = (220,)
 
 
-# top-p sampling runs on a top-K candidate set: a full-vocab sort costs
-# 1.5 ms (b8) to 5.4 ms (b32) per decode step at V=128k on v5e — up to a
-# quarter of the serving tick — while approx_max_k(256) + a 256-way
-# categorical is 0.18/0.64 ms (8.4x).  Probabilities stay normalized
-# over the FULL vocab (logsumexp), so the nucleus cut is exact whenever
-# it fits in 256 candidates; beyond that the tail truncates (standard
-# practice — vLLM caps top-p the same way).  approx_max_k is the
-# TPU-native top-k (recall_target=0.99: misses concentrate on
-# near-boundary tail candidates, negligible for sampling; greedy rows
-# always use the exact full-vocab argmax).
+# top-p sampling runs on a top-K candidate set instead of a full-vocab
+# sort over V=128k.  Probabilities stay normalized over the FULL vocab
+# (logsumexp), so the nucleus cut is exact whenever it fits in 256
+# candidates; beyond that the tail truncates (standard practice — vLLM
+# caps top-p the same way).  approx_max_k with recall_target=0.99: misses
+# concentrate on near-boundary tail candidates, negligible for sampling;
+# greedy rows always use the exact full-vocab argmax.
 _TOP_P_CANDIDATES = 256
 
 
@@ -168,25 +165,7 @@ def llm_generate(
                 lp, h, None, inject_heads,
                 cached_kv=(inj_k[idx], inj_v[idx]))
 
-    # in-kernel injection for the decode loop: with an int8-quantized
-    # cross-attn stack the gated cross-attention runs inside the fused
-    # decode kernel (ops/fused_decode) instead of per-layer XLA between
-    # launches; prefill (T>1) keeps the XLA extra_layer_fn path
-    fused_spec = None
-    if inject_params is not None:
-        from ..ops.fused_decode import fused_inject_supported, pad_audio_kv
-        ta_real = inj_k.shape[2]
-        kp = pad_audio_kv(inj_k.astype(jnp.bfloat16))
-        if fused_inject_supported(inject_params, cfg, kp.shape[2]):
-            fused_spec = dict(
-                params=inject_params, k=kp,
-                v=pad_audio_kv(inj_v.astype(jnp.bfloat16)),
-                ta_real=ta_real, heads=inject_heads,
-                on=jnp.ones((B,), jnp.float32))
-
-    # Round the cache up to a 128 multiple: the fused decode kernel tiles
-    # the KV stream in 128-lane blocks (extra positions are mask-dead).
-    Tmax = -(-(T + max_new_tokens) // 128) * 128
+    Tmax = T + max_new_tokens
     cache = jllm.init_kv_cache(cfg, B, Tmax, dtype=inputs_embeds.dtype)
 
     full_mask = jnp.zeros((B, Tmax), jnp.int32).at[:, :T].set(attention_mask)
@@ -233,8 +212,7 @@ def llm_generate(
             params, cfg, input_ids=s["cur"][:, None],
             attention_mask=mask, positions=s["pos"][:, None],
             cache=s["cache"], cache_index=write_idx, lora=lora,
-            lora_scale=lora_scale, extra_layer_fn=extra_layer_fn,
-            fused_injection=fused_spec)
+            lora_scale=lora_scale, extra_layer_fn=extra_layer_fn)
         key, sub = jax.random.split(s["key"])
         nxt = sample_token(logits[:, -1], sub, temperature, top_p, do_sample)
         nxt = jnp.where(s["done"], pad_id, nxt)

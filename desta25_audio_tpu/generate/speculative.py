@@ -1,17 +1,15 @@
-"""Speculative decoding (greedy + sampled): n-gram drafting + fused
-multi-token verify.
+"""Speculative decoding (greedy + sampled): n-gram drafting + multi-token
+verify.
 
-The fused decode kernel is HBM-bound on the weight stream, so verifying
-``k`` draft tokens per row costs almost nothing over a single-token step
-(measured on v5e, 8B int8 b8: 10.45 ms for 1 token vs 10.93 ms for 4 —
-+4.6%).  That makes *prompt-lookup* speculative decoding (vLLM's
-ngram drafter; no draft model, no training) nearly free: propose the
-continuation of the last bigram's most recent earlier occurrence in the
-token history, verify all k tokens in one weight stream, and accept the
-longest prefix that matches the model's own greedy choices.  Worst case
-(nothing ever matches) decodes at the plain fused rate + ~5%; repetitive
-stretches (transcriptions, lists, JSON, quoted context) decode several
-tokens per step.
+Decode is bound by the weight stream, so verifying ``k`` draft tokens per
+row in one T=k cached forward (``llm_apply`` with per-row cache offsets)
+reads the weights once for k positions.  That makes *prompt-lookup*
+speculative decoding (vLLM's ngram drafter; no draft model, no training)
+cheap: propose the continuation of the last n-gram's most recent earlier
+occurrence in the token history, verify all k tokens in one weight
+stream, and accept the longest prefix that matches the model's own
+greedy choices.  Repetitive stretches (transcriptions, lists, JSON,
+quoted context) decode several tokens per step.
 
 Acceptance semantics: each verify position j draws its token from the
 model's processed next-token distribution at j (argmax when greedy, a
@@ -26,12 +24,11 @@ itself, i.e. a fresh draw from p_j.  Every emitted token is therefore
 distributed as p(. | emitted prefix): the output distribution is
 IDENTICAL to plain autoregressive sampling; speculation only changes
 how many tokens land per weight stream.
-(Not bit-identical to the sequential loop in general: a verified token
-attends its in-flight predecessors through the kernel's f32 in-register
-block, while the sequential loop streams them from the bf16 cache, so a
+(Not bit-identical to the sequential loop in general: the T=k verify
+runs its matmuls at another row count than the T=1 step, so a
 numerically tied argmax — or the logits a sample is drawn from — can
-differ at bf16 rounding level.  Both are valid rounding variants of the
-same math; the same caveat applies to vLLM's spec decode.)
+differ at rounding level.  Both are valid rounding variants of the same
+math; the same caveat applies to vLLM's spec decode.)
 
 Replaces the decode loop of the reference's HF ``generate``
 (modeling_desta25.py:1419-1427) when ``speculative_k >= 2``.
@@ -47,8 +44,6 @@ import jax.numpy as jnp
 
 from ..config import LLMConfig
 from ..models import llm as jllm
-from ..models.llm import _head_logits, rms_norm
-from ..ops.fused_decode import fused_supported
 
 
 def ngram_propose(hist: jnp.ndarray, hlen: jnp.ndarray,
@@ -118,9 +113,9 @@ def llm_generate_spec(
     do_sample: bool = False,
     prompt_ids: Optional[jnp.ndarray] = None,  # [B, Tp] for n-gram lookup
     prompt_lens: Optional[jnp.ndarray] = None,  # [B]
-    inject_params=None,               # ORCA deep injection (int8 stack
-    inject_tokens=None,               # required — the verify kernel runs
-    inject_scale: float = 2.5,        # the cross-attention in-kernel)
+    inject_params=None,               # ORCA deep injection
+    inject_tokens=None,
+    inject_scale: float = 2.5,
     inject_heads: int = 0,
     return_stats: bool = False,
 ) -> Tuple[jnp.ndarray, ...]:
@@ -140,18 +135,14 @@ def llm_generate_spec(
     if do_sample:
         assert key is not None, "do_sample spec decode needs a PRNG key"
 
-    # ORCA deep injection: XLA extra_layer_fn for the prefill, in-kernel
-    # spec (audio K/V streamed through the verify kernel) for the loop —
-    # eligibility (int8 cross-attn stack) is the caller's job
-    # (models/desta._spec_eligible).
+    # ORCA deep injection: the gated cross-attention runs after every
+    # decoder layer in the prefill and in every verify step
     extra_layer_fn = None
-    fspec = None
     if inject_params is not None:
         from ..models.orca import (
             gated_cross_attention_apply,
             precompute_cross_kv,
         )
-        from ..ops.fused_decode import pad_audio_kv
         from ..ops.rope import fractional_rope_apply
         roped = fractional_rope_apply(inject_tokens, inject_scale,
                                       cfg.rope_theta)
@@ -163,13 +154,8 @@ def llm_generate_spec(
                 lp, h, None, inject_heads,
                 cached_kv=(inj_k[idx], inj_v[idx]))
 
-        fspec = dict(params=inject_params,
-                     k=pad_audio_kv(inj_k.astype(jnp.bfloat16)),
-                     v=pad_audio_kv(inj_v.astype(jnp.bfloat16)),
-                     ta_real=inj_k.shape[2], heads=inject_heads,
-                     on=jnp.ones((B,), jnp.float32))
-
-    Tmax = -(-(T + max_new_tokens + Kd) // 128) * 128
+    # Kd slack: a verify step writes Kd positions from its cache index
+    Tmax = T + max_new_tokens + Kd
     cache = jllm.init_kv_cache(cfg, B, Tmax, dtype=inputs_embeds.dtype)
     full_mask = jnp.zeros((B, Tmax), jnp.int32
                           ).at[:, :T].set(attention_mask)
@@ -196,8 +182,8 @@ def llm_generate_spec(
             return jnp.zeros(t.shape, bool)
         return jnp.any(t[..., None] == eos_arr, axis=-1)
 
-    # mask: every slot >= T is pre-marked valid — the verify bias only
-    # admits keys < each row's write position anyway, so this is exact
+    # mask: every slot >= T is pre-marked valid — the causal verify mask
+    # only admits keys <= each draft position anyway, so this is exact
     # and saves a mask update per step.
     mask = full_mask.at[:, T:].set(1)
 
@@ -234,17 +220,6 @@ def llm_generate_spec(
 
     jidx = jnp.arange(Kd)[None, :]
 
-    # verify kernel: single-device fused off-mesh, single-launch TP
-    # kernel on a "model" mesh (ops/fused_decode_mesh.py)
-    from ..ops.fused_decode_mesh import pick_verify_fn
-    verify_fn = pick_verify_fn(
-        params, cfg, cache, Kd,
-        inject_params=fspec["params"] if fspec else None,
-        ta_padded=fspec["k"].shape[2] if fspec else 0)
-    assert verify_fn is not None, \
-        "spec decode requires an eligible fused verify kernel " \
-        "(caller gates via spec_generate_supported)"
-
     def cond(s):
         return ~jnp.all(s["done"])
 
@@ -252,12 +227,10 @@ def llm_generate_spec(
         draft = ngram_propose(s["hist"], s["hlen"], Kd - 1)
         toks = jnp.concatenate([s["cur"][:, None], draft], axis=1)
         posn = s["pos"][:, None] + jidx
-        embeds = params["embed"][toks]
-        hidden, cache = verify_fn(
-            params, cfg, embeds, mask, posn, s["cache"], s["ci"],
-            inject=fspec)
-        hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
-        lg = _head_logits(params, cfg, hidden)       # [B, Kd, V]
+        lg, cache, _ = jllm.llm_apply(                # lg: [B, Kd, V]
+            params, cfg, input_ids=toks, attention_mask=mask,
+            positions=posn, cache=s["cache"], cache_index=s["ci"],
+            extra_layer_fn=extra_layer_fn)
         if do_sample:
             # one draw from each position's processed distribution: the
             # accept-on-equality below IS exact speculative sampling for
@@ -312,23 +285,3 @@ def llm_generate_spec(
         # the drafter is paying off
         return out, n_gen, state["steps"], state["accepted"]
     return out, n_gen
-
-
-def spec_generate_supported(params, cfg, B: int, S: int,
-                            speculative_k: int,
-                            dtype=jnp.bfloat16) -> bool:
-    """Trace-time predicate: can the spec loop run here?  ``dtype`` must
-    be the dtype the decode cache will actually carry (the model/embeds
-    dtype — the fused kernel requires bf16)."""
-    if speculative_k < 2:
-        return False
-    cache = jax.eval_shape(
-        lambda: jllm.init_kv_cache(cfg, B, S, dtype=dtype))
-
-    class _C:
-        k = cache.k
-
-    if fused_supported(params, cfg, _C, kd=speculative_k):
-        return True
-    from ..ops.fused_decode_mesh import fused_mesh_supported
-    return fused_mesh_supported(params, cfg, _C, kd=speculative_k)

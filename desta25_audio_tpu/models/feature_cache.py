@@ -1,8 +1,8 @@
 """Audio-feature cache for serving: skips file decode, VAD, ASR and the
 whole perception tower (mel -> encoder -> Q-Former) for clips already
 seen.  Multi-turn conversations resubmit the same clip every turn, and
-perception dominates single-request TTFT (~25 of ~33 ms at B=1 on v5e) —
-a hit turns that into a host dict lookup plus a device splice.
+perception is a large part of a single request's TTFT — a hit turns
+that into a host dict lookup plus a device splice.
 
 The reference recomputes perception on every generate() call
 (modeling_desta25.py:1491-1568); this cache is new framework surface,

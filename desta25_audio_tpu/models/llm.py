@@ -34,12 +34,9 @@ from ..parallel.sharding import shard_activation
 
 
 class KVCache(NamedTuple):
-    """Packed KV cache: heads folded into the lane axis.
-
-    [L, B, Tmax, Hkv*Dh] — the fused decode kernel's native layout.  A 5D
-    [.., Hkv, Dh] layout tiles (Hkv, Dh) on TPU, which forces a full-cache
-    relayout copy at the pallas boundary every decode step (measured ~3 ms
-    at b32/8B); the packed form DMAs straight into the kernel."""
+    """Packed KV cache: heads folded into the last axis,
+    [L, B, Tmax, Hkv*Dh], one array for all layers (the layer scan
+    slices it)."""
     k: jnp.ndarray  # [L, B, Tmax, Hkv * Dh]
     v: jnp.ndarray  # [L, B, Tmax, Hkv * Dh]
 
@@ -134,7 +131,7 @@ def init_lora(key, cfg: LLMConfig, rank: int, dtype=jnp.float32) -> Params:
 
 
 def _head_logits(params: Params, cfg: LLMConfig,
-                 hidden: jnp.ndarray, w8a8: bool = True) -> jnp.ndarray:
+                 hidden: jnp.ndarray, w8a8: bool = False) -> jnp.ndarray:
     """Final-hidden -> vocab logits (tied / untied / quantized heads)."""
     head = params.get("lm_head")
     from ..ops.quant import is_quantized, quant_matmul
@@ -142,14 +139,12 @@ def _head_logits(params: Params, cfg: LLMConfig,
         return jnp.einsum("btd,vd->btv", hidden, params["embed"],
                           preferred_element_type=jnp.float32)
     if is_quantized(head):
-        # quantized heads may be out-padded for kernel blocking
-        return quant_matmul(hidden, head, out_dtype=jnp.float32,
-                            w8a8=w8a8)[..., :cfg.vocab_size]
+        return quant_matmul(hidden, head, out_dtype=jnp.float32, w8a8=w8a8)
     return jnp.einsum("btd,dv->btv", hidden, head,
                       preferred_element_type=jnp.float32)
 
 
-def _proj(x, w, w8a8: bool = True):
+def _proj(x, w, w8a8: bool = False):
     from ..ops.quant import is_quantized, quant_matmul
     if is_quantized(w):
         return quant_matmul(x, w, w8a8=w8a8)
@@ -174,8 +169,14 @@ def _lora_delta(x, lp, scale: float, dropout: float = 0.0, key=None):
 def _attention(p: Params, x: jnp.ndarray, cos, sin, mask, cfg: LLMConfig,
                layer_cache=None, cache_index=None, lora=None,
                lora_scale: float = 1.0, lora_dropout: float = 0.0,
-               lora_key=None, flash_attention_mask=None,
-               w8a8: bool = True):
+               lora_key=None, kv_mask=None, w8a8: bool = False):
+    """One attention block.
+
+    ``kv_mask`` [B, T] set: attention over this call's own T keys
+    (causal, padded keys masked) through ``ops.attention.mha`` — training,
+    and prefill into a fresh cache.  Otherwise: attention over the whole
+    cache under the dense ``mask`` [B, 1, T, Tmax] (cached decode and
+    speculative verify)."""
     B, T, D = x.shape
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
@@ -221,25 +222,19 @@ def _attention(p: Params, x: jnp.ndarray, cos, sin, mask, cfg: LLMConfig,
                 return jax.lax.dynamic_update_slice(c_row, new_row, (i, 0))
             ck = jax.vmap(upd)(ck, kf, ci)
             cv = jax.vmap(upd)(cv, vf, ci)
-        S_c = ck.shape[1]
         new_cache = (ck, cv)
-        # The 4D view of the packed cache below is a tiling change, but
-        # per-kv-head 128-aligned lane slices measured WORSE than this
-        # reshape on v5e (A/B at b8 Qwen3-4B: 557 vs 592 tok/s at
-        # CTX=192, 627 vs 657 at CTX=64 — 8 small einsums pipeline worse
-        # than one reshaped batched einsum), so the reshape stays.
+
+    if kv_mask is not None:
+        from ..ops.attention import mha
+        out = mha(q, k.astype(q.dtype), v.astype(q.dtype), causal=True,
+                  kv_mask=kv_mask)
+    else:
+        ck, cv = new_cache
+        S_c = ck.shape[1]
         k = ck.reshape(B, S_c, Hkv, Dh)
         v = cv.reshape(B, S_c, Hkv, Dh)
-
-    if layer_cache is None and flash_attention_mask is not None:
-        # flash path (TPU, long-enough sequences) — causal + per-token mask
-        from ..ops.attention import mha as dispatch_mha
-        out = dispatch_mha(q, k, v, causal=True,
-                           attention_mask=flash_attention_mask)
-    else:
-        # XLA path with an explicit combined mask (decode / short seqs).
-        # Grouped-query einsum keeps K/V un-repeated: at 4B-scale decode,
-        # materializing repeated K/V costs ~15% of the HBM roofline.
+        # Grouped-query einsum keeps K/V un-repeated (repeating them would
+        # multiply the cache bytes each step reads by H / Hkv).
         G = H // Hkv
         qg = q.reshape(B, T, Hkv, G, Dh)
         logits = jnp.einsum("btkgd,bskd->bkgts", qg, k,
@@ -257,7 +252,7 @@ def _attention(p: Params, x: jnp.ndarray, cos, sin, mask, cfg: LLMConfig,
     return _proj(out, p["wo"], w8a8), new_cache
 
 
-def _mlp(p: Params, x: jnp.ndarray, w8a8: bool = True) -> jnp.ndarray:
+def _mlp(p: Params, x: jnp.ndarray, w8a8: bool = False) -> jnp.ndarray:
     g = _proj(x, p["w_gate"], w8a8)
     u = _proj(x, p["w_up"], w8a8)
     h = jax.nn.silu(g.astype(jnp.float32)).astype(x.dtype) * u
@@ -281,11 +276,10 @@ def llm_apply(
     lora_rng: Optional[jax.Array] = None,
     extra_layer_fn=None,
     extra_aux_init=None,
-    fused_injection=None,
     return_hidden: bool = False,
     remat: bool = False,
     skip_head: bool = False,
-    w8a8: bool = True,
+    w8a8: bool = False,
     pipeline_microbatches: Optional[int] = None,
     sequence_parallel: bool = False,
 ):
@@ -295,8 +289,11 @@ def llm_apply(
     attention_mask: [B, T] 1/0 (left padding supported).  With a cache it
     must cover the cache length [B, Tmax].
     positions: [B, T] explicit RoPE positions; default cumsum(mask)-1.
-    cache / cache_index: KV-cached decode — writes the new k/v at
-    ``cache_index`` and attends over the full cache.
+    cache / cache_index: KV-cached call — writes the new k/v at
+    ``cache_index`` (scalar, or [B] per-row offsets).  A call at the
+    static ``cache_index=0`` is a prefill into a fresh cache and attends
+    its own T keys; any other attends over the full cache (decode, and
+    the T = Kd multi-token speculative verify).
     lora_scale: peft alpha/r multiplier on the LoRA delta; lora_dropout +
     lora_rng enable train-time dropout on the adapter input (reference
     LoRA config r=16, alpha=16, dropout 0.1 — modeling_desta25.py:720-729).
@@ -317,6 +314,10 @@ def llm_apply(
     size.  No-op off-mesh, under a cache (decode), or inside the GPipe
     pipeline body (activation constraints are suspended there).
 
+    w8a8: int8 towers run prefill-sized matmuls as W8A8 (per-row dynamic
+    activation quant, ops/quant.py) instead of the weight-only
+    dequant-dot.  Off by default: it changes the model's numerics.
+
     Returns (logits [B, T, V] float32, new_cache, hidden or None); with
     ``extra_aux_init`` a 4th element carries the final aux value.
     """
@@ -329,129 +330,35 @@ def llm_apply(
     seq_par = bool(sequence_parallel) and cache is None
     x = shard_activation(x, ("data", "model" if seq_par else None, None))
 
+    mask = kv_mask = None
     if cache is not None:
         Tmax = cache.k.shape[2]
         if attention_mask is None:
             attention_mask = jnp.ones((B, Tmax), jnp.int32)
-        key_pos = jnp.arange(Tmax)[None, None, None, :]
         ci = jnp.asarray(cache_index)
-        if ci.ndim == 0:
-            q_pos = (ci + jnp.arange(T))[None, None, :, None]
-        else:  # [B] per-row offsets
-            q_pos = (ci[:, None] + jnp.arange(T)[None, :])[:, None, :, None]
-        mask = (key_pos <= q_pos) & (attention_mask[:, None, None, :] > 0)
         if positions is None:
             positions = (ci + jnp.arange(T)[None, :] if ci.ndim == 0
                          else ci[:, None] + jnp.arange(T)[None, :])
+        if isinstance(cache_index, int) and cache_index == 0:
+            # prefill into a fresh cache: keys past T are empty, so
+            # attending the call's own keys under a causal mask is exact
+            kv_mask = attention_mask[:, :T]
+        else:
+            key_pos = jnp.arange(Tmax)[None, None, None, :]
+            if ci.ndim == 0:
+                q_pos = (ci + jnp.arange(T))[None, None, :, None]
+            else:  # [B] per-row offsets
+                q_pos = (ci[:, None]
+                         + jnp.arange(T)[None, :])[:, None, :, None]
+            mask = ((key_pos <= q_pos)
+                    & (attention_mask[:, None, None, :] > 0))
     else:
         if attention_mask is None:
             attention_mask = jnp.ones((B, T), jnp.int32)
-        causal = jnp.tril(jnp.ones((T, T), bool))[None, None]
-        mask = causal & (attention_mask[:, None, None, :] > 0)
-        flash_mask = attention_mask
+        kv_mask = attention_mask
         if positions is None:
             positions = jnp.maximum(
                 jnp.cumsum(attention_mask, axis=1) - 1, 0)
-
-    # In-kernel deep injection: T==1 cached ORCA decode with quantized
-    # tower AND quantized injection q/o/gate1 runs the gated
-    # cross-attention INSIDE the single-launch kernel (audio K/V stream
-    # through VMEM ring buffers; the per-layer XLA injection cost ~10 ms
-    # of a 22 ms step at the Qwen3-4B flagship).  ``fused_injection`` is
-    # the structured spec (ops/fused_decode._run_fused docstring); the
-    # caller still passes extra_layer_fn as the fallback.
-    if (cache is not None and T == 1 and lora is None
-            and fused_injection is not None and extra_aux_init is None
-            and not return_hidden):
-        from ..ops.fused_decode import (
-            fused_decode_layers,
-            fused_inject_supported,
-            fused_supported,
-        )
-        from ..ops.fused_decode_mesh import (
-            fused_decode_layers_mesh,
-            fused_mesh_supported,
-        )
-        from ..ops.quant import is_quantized
-        inj_fn = None
-        if (fused_supported(params, cfg, cache)
-                and is_quantized(params["layers"].get("wq"))
-                and fused_inject_supported(
-                    fused_injection["params"], cfg,
-                    fused_injection["k"].shape[2])):
-            inj_fn = fused_decode_layers
-        elif fused_mesh_supported(
-                params, cfg, cache,
-                inject_params=fused_injection["params"],
-                ta_padded=fused_injection["k"].shape[2]):
-            # tensor-parallel single-launch kernel with in-kernel ORCA
-            # injection (replicated injection weights, local tower shards)
-            inj_fn = fused_decode_layers_mesh
-        if inj_fn is not None:
-            hidden_pre, new_cache = inj_fn(
-                params, cfg, x, attention_mask, positions, cache,
-                cache_index, inject=fused_injection)
-            hidden = rms_norm(params["norm"], hidden_pre, cfg.rms_norm_eps)
-            logits = _head_logits(params, cfg, hidden, w8a8)
-            return logits, new_cache, None
-
-    # Fused single-kernel decode: T==1 cached steps with quantized weights
-    # and no LoRA / deep injection route through ops/fused_decode (one
-    # pallas_call spanning every layer instead of 7 launches x L).
-    if (cache is not None and T == 1 and lora is None
-            and extra_layer_fn is None and not return_hidden):
-        from ..ops.fused_decode import fused_decode_layers, fused_supported
-        from ..ops.fused_decode_mesh import (
-            fused_decode_layers_mesh,
-            fused_mesh_supported,
-        )
-        from ..ops.fused_decode_tp import (
-            fused_decode_layers_tp,
-            fused_tp_supported,
-        )
-        if fused_supported(params, cfg, cache):
-            fused_fn = fused_decode_layers
-        elif fused_mesh_supported(params, cfg, cache):
-            # tensor-parallel SINGLE-LAUNCH kernel with in-kernel
-            # all-reduce (ops/fused_decode_mesh.py) — keeps the
-            # cross-layer weight prefetch under TP
-            fused_fn = fused_decode_layers_mesh
-        elif fused_tp_supported(params, cfg, cache):
-            # tensor-parallel per-layer kernel pair under shard_map
-            # (ops/fused_decode_tp.py) — multi-chip decode keeps a fused
-            # fast path instead of falling back to per-projection XLA
-            fused_fn = fused_decode_layers_tp
-        else:
-            fused_fn = None
-        if fused_fn is not None:
-            hidden_pre, new_cache = fused_fn(
-                params, cfg, x, attention_mask, positions, cache,
-                cache_index)
-            hidden = rms_norm(params["norm"], hidden_pre, cfg.rms_norm_eps)
-            logits = _head_logits(params, cfg, hidden, w8a8)
-            if extra_aux_init is not None:
-                return logits, new_cache, None, extra_aux_init
-            return logits, new_cache, None
-
-    # Deep-injection decode (ORCA): per-layer fused kernel pairs with the
-    # injection applied in XLA between layers — the single-launch kernel
-    # has no between-layer hook.  OPT-IN via DESTA_FUSED_PERLAYER=1:
-    # measured slower than XLA for the Qwen3-4B ORCA flagship (see
-    # ops/fused_decode_tp.fused_perlayer_supported).
-    if (cache is not None and T == 1 and lora is None
-            and extra_layer_fn is not None and extra_aux_init is None
-            and not return_hidden):
-        from ..ops.fused_decode_tp import (
-            fused_decode_layers_perlayer,
-            fused_perlayer_supported,
-        )
-        if fused_perlayer_supported(params, cfg, cache):
-            hidden_pre, new_cache = fused_decode_layers_perlayer(
-                params, cfg, x, attention_mask, positions, cache,
-                cache_index, extra_layer_fn=extra_layer_fn)
-            hidden = rms_norm(params["norm"], hidden_pre, cfg.rms_norm_eps)
-            logits = _head_logits(params, cfg, hidden, w8a8)
-            return logits, new_cache, None
 
     cos, sin = llm_rope_cos_sin(cfg, positions)
 
@@ -466,7 +373,7 @@ def llm_apply(
         )
         if pipeline_enabled():
             x = pipeline_decoder_hidden(
-                params["layers"], cfg, x, mask, flash_mask, cos, sin,
+                params["layers"], cfg, x, kv_mask, cos, sin,
                 n_micro=pipeline_microbatches, remat=remat, w8a8=w8a8)
             hidden = rms_norm(params["norm"], x, cfg.rms_norm_eps)
             logits = (None if skip_head
@@ -492,8 +399,7 @@ def llm_apply(
         attn_out, new_lc = _attention(
             p, rms_norm(p["ln1"], h, cfg.rms_norm_eps), cos, sin, mask, cfg,
             layer_cache, cache_index, lp, lora_scale, lora_dropout, lkey,
-            flash_attention_mask=(None if cache is not None else flash_mask),
-            w8a8=w8a8)
+            kv_mask=kv_mask, w8a8=w8a8)
         h = h + attn_out
         h = h + _mlp(p, rms_norm(p["ln2"], h, cfg.rms_norm_eps), w8a8)
         if extra_layer_fn is not None:
@@ -567,11 +473,12 @@ def merge_lora(params: Params, lora: Params,
     ``merge_and_unload``): W' = W + scale * A @ B.
 
     A serving transform: the merged tree decodes WITHOUT the lora
-    argument, which re-opens the fused int8 decode kernel (quantize the
-    merged tree with ops.quant.quantize_llm_params afterwards — merging
-    must happen on the unquantized base).  Exact at inference: LoRA
-    dropout is train-time only, so ``x @ W + scale * (x @ A) @ B ==
-    x @ (W + scale * A @ B)`` up to dtype rounding."""
+    argument, so serving can speculate and int8-quantize the tower
+    (quantize the merged tree with ops.quant.quantize_llm_params
+    afterwards — merging must happen on the unquantized base).  Exact
+    at inference: LoRA dropout is train-time only, so
+    ``x @ W + scale * (x @ A) @ B == x @ (W + scale * A @ B)`` up to
+    dtype rounding."""
     from ..ops.quant import is_quantized
     targets = {"q": "wq", "k": "wk", "v": "wv"}
     layers = dict(params["layers"])

@@ -136,8 +136,7 @@ def init_orca_cross_attns(key, cfg: DeSTA25Config,
 
 def _xattn_linear(p: Params, x: jnp.ndarray) -> jnp.ndarray:
     """Linear that routes int8 leaves (ops.quant.quantize_orca_cross_attns)
-    through quant_matmul: weight-only dequant-dot at decode shapes (M=B),
-    W8A8 at the precompute/prefill shapes (M>=128) — ops.core.linear's
+    through quant_matmul's weight-only dequant-dot — ops.core.linear's
     int8 dispatch is act-quant-always, the wrong regime for per-step
     decode projections."""
     if "w" in p:

@@ -1,8 +1,8 @@
 """Audio-token splice: placeholder expansion + embedding-stream scatter.
 
 The reference overwrites slices of ``inputs_embeds`` per audio in a Python
-loop (modeling_desta25.py:1014-1045).  That is ragged and host-driven; the
-TPU-native equivalent precomputes three dense index maps on the host during
+loop (modeling_desta25.py:1014-1045).  That is ragged and host-driven; this
+equivalent precomputes three dense index maps on the host during
 collation/generation and performs the splice on device as two batched
 gathers + selects — fully static shapes, jit-friendly, no per-audio loop.
 

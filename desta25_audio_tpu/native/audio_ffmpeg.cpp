@@ -1,6 +1,6 @@
 // Universal audio decode/encode via the system FFmpeg libraries
 // (libavformat/libavcodec/libswresample, present in this image as
-// ffmpeg 5.1).  This is the TPU framework's equivalent of the reference's
+// ffmpeg 5.1).  This is the framework's equivalent of the reference's
 // soundfile -> pydub/ffmpeg decode stack (desta/utils/audio.py:245-361):
 // DeSTA-AQA5M spans 50 source datasets, so FLAC/MP3/OGG/M4A inputs are a
 // certainty, not an edge case.

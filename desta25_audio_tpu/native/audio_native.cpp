@@ -1,7 +1,7 @@
 // Native audio runtime: WAV decode + polyphase resample + channel mixdown.
 //
 // The reference gets its decode/resample speed from libsndfile/librosa C
-// cores (SURVEY §2.6); this is the equivalent native path for the TPU
+// cores (SURVEY §2.6); this is the equivalent native path for the
 // framework's data loader.  Exposed through a minimal C ABI consumed via
 // ctypes (no pybind11 in the image).  All entry points release the GIL by
 // construction (pure C, no Python API), so a Python thread pool scales

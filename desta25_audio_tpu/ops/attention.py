@@ -1,119 +1,67 @@
-"""Attention dispatch: Pallas flash attention on TPU, XLA math elsewhere.
+"""Attention dispatch for every cache-less attention in the model.
 
-XLA materializes the [B, H, T, T] float32 logits (1.5 GB per Whisper
-encoder layer at batch 8), making attention HBM-bound; the Pallas flash
-kernel streams K/V blocks through VMEM with an online softmax.  Measured on
-v5e (B8 H20 T1536 D64, bf16): XLA 4.47 ms vs flash 1.48 ms with the block
-sizes below.
+One entry point serves Whisper encoder self-attention, Q-Former self- and
+cross-attention (Tq=64 queries over Tkv=1500 encoder frames) and LLM
+prefill/training (causal, grouped-query).  Cached decode attends over its
+KV cache in ``models/llm.py`` and does not come here.
 
-Padding: flash block sizes need the sequence padded to a multiple of 256;
-padded kv positions are masked via segment ids (zero-padding alone would
-leak exp(0) probability mass).  Gradients flow through the kernel's custom
-VJP, so the same path serves training.
+``mha`` calls ``jax.nn.dot_product_attention``.  :func:`implementation`
+picks cuDNN's fused flash attention wherever cuDNN takes the call, which
+keeps the [B, H, Tq, Tk] scores out of device memory, and XLA's own
+softmax(QK^T)V everywhere else.  The choice is a fixed rule over what the
+caller passes; nothing is tried and retried.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 
-from .core import mha as xla_mha
 
-_PAD = 256
+def implementation(platform: str, dtype, head_dim: int, tq: int, tk: int,
+                   masked: bool) -> str:
+    """"cudnn" or "xla" for one attention call.
 
-
-def _flash_available() -> bool:
-    import os
-    if os.environ.get("DESTA_FLASH", "1") in ("0", "false"):
-        return False
-    return jax.default_backend() == "tpu"
-
-
-@functools.lru_cache(maxsize=1)
-def _flash():
-    from jax.experimental.pallas.ops.tpu.flash_attention import (
-        BlockSizes,
-        SegmentIds,
-        flash_attention,
-    )
-    return flash_attention, BlockSizes, SegmentIds
-
-
-def _block_sizes(T: int):
-    import os
-    _, BlockSizes, _ = _flash()
-    # Swept on v5e encoder shapes (B8 H20 T1536 D64, scripts/sweep_flash.py):
-    # 1536/1536 = 1.23 ms vs 1.52 ms at the old 768/1536 — one whole-row
-    # block amortizes the online-softmax rescale to a single pass.
-    bq = min(int(os.environ.get("DESTA_FLASH_BQ", 1536)), T)
-    bkv = min(int(os.environ.get("DESTA_FLASH_BKV", 1536)), T)
-    return BlockSizes(
-        block_q=bq, block_k_major=bkv, block_k=bkv, block_b=1,
-        block_q_major_dkv=bq, block_k_major_dkv=bkv, block_q_dkv=bq,
-        block_k_dkv=bkv, block_q_dq=bq, block_k_dq=bkv,
-        block_k_major_dq=bkv)
+    cuDNN's flash attention needs the GPU, bf16/fp16 operands and a head
+    dim that is a multiple of 8 up to 256 (Hopper).  A padding mask
+    reaches cuDNN as an additive [B, 1, Tq, Tk] bias, and cuDNN's backward
+    pass refuses a bias over odd sequence lengths, so a masked call with
+    an odd Tq or Tk takes XLA.
+    """
+    if platform != "gpu":
+        return "xla"
+    if jnp.dtype(dtype) not in (jnp.dtype(jnp.bfloat16),
+                                jnp.dtype(jnp.float16)):
+        return "xla"
+    if head_dim % 8 or head_dim > 256:
+        return "xla"
+    if masked and (tq % 2 or tk % 2):
+        return "xla"
+    return "cudnn"
 
 
-def mha(q: jnp.ndarray, k: jnp.ndarray, v: jnp.ndarray,
-        mask: Optional[jnp.ndarray] = None,
-        attention_mask: Optional[jnp.ndarray] = None,
+def mha(q: jnp.ndarray, k: jnp.ndarray, v: jnp.ndarray, *,
+        kv_mask: Optional[jnp.ndarray] = None,
         causal: bool = False,
         scale: Optional[float] = None) -> jnp.ndarray:
-    """Drop-in for ops.core.mha with a flash fast path.
+    """Multi-head attention without a KV cache.
 
-    q/k/v: [B, T, H, D] (kv may have fewer heads — GQA repeats them).
-    Flash path taken when: TPU backend, same q/kv length, no arbitrary
-    ``mask`` (only ``causal`` and/or per-token ``attention_mask`` [B, T]),
-    and T >= 512.  Everything else falls back to the XLA path.
+    q: [B, Tq, H, D]; k/v: [B, Tk, Hkv, D] with H % Hkv == 0 (GQA).
+    kv_mask: optional [B, Tk] 1/0 key mask (left or right padding).
+    causal: query i attends keys <= i (Tq == Tk).
+    Returns [B, Tq, H, D] in q's dtype.
     """
-    B, T, H, D = q.shape
-    Hkv = k.shape[2]
-    if scale is None:
-        scale = D ** -0.5
-
-    use_flash = (_flash_available() and mask is None
-                 and k.shape[1] == T and T >= 512)
-    if not use_flash:
-        full_mask = mask
-        if full_mask is None and (causal or attention_mask is not None):
-            parts = []
-            if causal:
-                parts.append(jnp.tril(jnp.ones((T, T), bool))[None, None])
-            if attention_mask is not None:
-                parts.append(attention_mask[:, None, None, :] > 0)
-            full_mask = parts[0]
-            for p in parts[1:]:
-                full_mask = full_mask & p
-        return xla_mha(q, k, v, mask=full_mask, scale=scale)
-
-    flash_attention, _, SegmentIds = _flash()
-    if Hkv != H:
-        rep = H // Hkv
-        k = jnp.repeat(k, rep, axis=2)
-        v = jnp.repeat(v, rep, axis=2)
-
-    Tp = -(-T // _PAD) * _PAD
-    pad = Tp - T
-    qt = jnp.swapaxes(q, 1, 2)  # [B, H, T, D]
-    kt = jnp.swapaxes(k, 1, 2)
-    vt = jnp.swapaxes(v, 1, 2)
-    seg = None
-    if pad or attention_mask is not None:
-        if attention_mask is None:
-            attention_mask = jnp.ones((B, T), jnp.int32)
-        # real tokens -> segment 1; pad -> 0 (flash masks cross-segment)
-        seg_ids = jnp.pad(attention_mask.astype(jnp.int32),
-                          ((0, 0), (0, pad)))
-        seg = SegmentIds(q=seg_ids, kv=seg_ids)
-    if pad:
-        qt = jnp.pad(qt, ((0, 0), (0, 0), (0, pad), (0, 0)))
-        kt = jnp.pad(kt, ((0, 0), (0, 0), (0, pad), (0, 0)))
-        vt = jnp.pad(vt, ((0, 0), (0, 0), (0, pad), (0, 0)))
-
-    out = flash_attention(qt, kt, vt, causal=causal, sm_scale=scale,
-                          segment_ids=seg, block_sizes=_block_sizes(Tp))
-    out = jnp.swapaxes(out, 1, 2)[:, :T]
+    B, Tq, _, D = q.shape
+    Tk = k.shape[1]
+    mask = None
+    if kv_mask is not None:
+        mask = jnp.broadcast_to(kv_mask[:, None, None, :] > 0,
+                                (B, 1, Tq, Tk))
+    impl = implementation(jax.default_backend(), q.dtype, D, Tq, Tk,
+                          mask is not None)
+    out = jax.nn.dot_product_attention(
+        q, k.astype(q.dtype), v.astype(q.dtype), mask=mask, scale=scale,
+        is_causal=causal, implementation=impl)
     return out.astype(q.dtype)

@@ -1,11 +1,10 @@
-"""Weight-only int8 quantization for decode.
+"""int8 quantization of the frozen towers' matmul weights.
 
-Decode is HBM-bound on weight reads; storing matmul weights as int8 with
-per-output-channel scales halves the traffic (and fits the 8B flagship on
-one 16 GB v5e chip).  The matmul runs as a Pallas kernel that DMAs int8
-tiles into VMEM, dequantizes there, and feeds the MXU in bf16 — the
-dequantized weight never exists in HBM.  (A plain XLA ``convert + dot``
-would materialize the bf16 weight, erasing the bandwidth win.)
+Decode reads every weight once per step, so it is bound by weight bytes:
+storing the matmul weights as int8 with per-output-channel scales halves
+them.  Every quantized matmul is plain XLA: a dequantize-then-dot, or,
+when the caller asks for it, W8A8 (per-row dynamic activation quant and
+an int8 x int8 -> int32 dot) at prefill-sized row counts.
 
 Representation: a quantized leaf is ``{"q": int8 [in, out],
 "s": float32 [out]}``; ``models.llm`` consumes it transparently.
@@ -14,33 +13,22 @@ Representation: a quantized leaf is ``{"q": int8 [in, out],
 from __future__ import annotations
 
 import functools
-import os
 from typing import Any, Dict
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 QuantLeaf = Dict[str, jnp.ndarray]
 
 
-def quantize_weight(w: jnp.ndarray, pad_out_to: int = 1) -> QuantLeaf:
-    """[in, out] float -> symmetric per-out-channel int8.
-
-    pad_out_to: zero-pad the out dim to a multiple (odd vocab sizes make
-    terrible kernel blocks; callers slice the matmul output back)."""
+def quantize_weight(w: jnp.ndarray) -> QuantLeaf:
+    """[in, out] float -> symmetric per-out-channel int8."""
     wf = w.astype(jnp.float32)
     scale = jnp.max(jnp.abs(wf), axis=0) / 127.0
     scale = jnp.maximum(scale, 1e-8)
     q = jnp.clip(jnp.round(wf / scale[None, :]), -127, 127).astype(jnp.int8)
-    N = q.shape[1]
-    Np = -(-N // pad_out_to) * pad_out_to
-    if Np != N:
-        q = jnp.pad(q, ((0, 0), (0, Np - N)))
-        scale = jnp.pad(scale, (0, Np - N), constant_values=1.0)
     return {"q": q, "s": scale}
 
 
@@ -52,132 +40,31 @@ def is_quantized(leaf) -> bool:
     return isinstance(leaf, dict) and "q" in leaf and "s" in leaf
 
 
-# ---------------------------------------------------------------------------
-# Pallas kernel: x [M, K] bf16 @ w int8 [K, N] * s [N] -> [M, N]
-# ---------------------------------------------------------------------------
-
-_BK = 512
-_BN = 512
-
-
-def _qmm_kernel(x_ref, w_ref, s_ref, o_ref, acc):
-    k = pl.program_id(1)
-
-    @pl.when(k == 0)
-    def _():
-        acc[:] = jnp.zeros_like(acc)
-
-    wt = w_ref[:].astype(jnp.bfloat16)  # dequant (scale applied at flush)
-    acc[:] += jnp.dot(x_ref[:].astype(jnp.bfloat16), wt,
-                      preferred_element_type=jnp.float32)
-
-    @pl.when(k == pl.num_programs(1) - 1)
-    def _():
-        o_ref[:] = (acc[:] * s_ref[:].astype(jnp.float32)
-                    ).astype(o_ref.dtype)
-
-
-def w8a8_default(allow: bool) -> bool:
-    """Resolve the W8A8 big-M dispatch: the caller's static choice,
-    overridable by env DESTA_INT8_PREFILL ("0" forces off, "1" forces
-    on).  NB: read at TRACE time — like DESTA_FUSED_DECODE, the env var
-    must be set before the first jit trace of a caller; flipping it later
-    silently keeps the old dispatch via the jit cache.  Prefer the
-    ``w8a8=`` argument on quant_matmul / llm_apply."""
-    env = os.environ.get("DESTA_INT8_PREFILL")
-    if env is not None:
-        return env == "1"
-    return allow
+# W8A8 takes the int8 tensor cores from this many rows up (prefill);
+# below it the matmul is bound by weight bytes and a dequant-dot is as good.
+_W8A8_MIN_ROWS = 128
 
 
 def _qmm_dispatch(x2: jnp.ndarray, q: jnp.ndarray,
                   s: jnp.ndarray, w8a8: bool) -> jnp.ndarray:
-    """Core [M, K] x int8 [K, N] * s [N] -> [M, N] f32, by shape regime:
-    Pallas weight-streaming kernel at decode-sized M; W8A8 int8 MXU
-    (default for inference prefill; see ``w8a8_default``) or XLA dequant
-    dot at prefill/training M."""
-    M, K = x2.shape
-    N = q.shape[1]
-    from ..parallel.mesh import current_mesh
-    under_mesh = current_mesh() is not None
-    # W8A8 crossover (measured, scripts/bench_prefill_dispatch.py, 8B
-    # layer dims): M=32 tie (both ~645 GiB/s weight stream), M=128 w8a8
-    # 10.85 vs pallas 11.53 ms/32L, M=256 13.5 vs 22.1.  The Pallas
-    # weight streamer stays for decode-sized M (< 128).
-    use_w8a8 = (jax.default_backend() == "tpu" and M >= 128
-                and w8a8_default(w8a8))
-    # Under a mesh, GSPMD cannot partition the Pallas custom call — it
-    # would all-gather the weight shards (worse than useless).  Take the
-    # XLA branches, which partition cleanly along the q/s sharding; the
-    # TP decode hot path bypasses this entirely via
-    # ops/fused_decode_tp's shard_map kernels.
-    if (jax.default_backend() != "tpu" or M > 256 or under_mesh
-            or use_w8a8):
-        if use_w8a8:
-            # W8A8 prefill: per-row dynamic activation quant + int8 MXU
-            # (~1.9x measured: 376 vs 192 TF/s at M=1536 K=4096 N=4096).
-            # Default for inference prefill (TPU-gated closeness tests
-            # guard it); training passes w8a8=False — act-quant noise in
-            # the frozen-tower forward would perturb the connector's
-            # learning signal for no training-speed reason to.
-            xf = x2.astype(jnp.float32)
-            a = jnp.maximum(jnp.max(jnp.abs(xf), axis=1, keepdims=True),
-                            1e-8) / 127.0
-            qx = jnp.round(xf / a).astype(jnp.int8)
-            y = jax.lax.dot_general(qx, q, (((1,), (0,)), ((), ())),
-                                    preferred_element_type=jnp.int32)
-            return y.astype(jnp.float32) * a * s[None, :].astype(
-                jnp.float32)
-        # f32 dequant then one round to the activation dtype (matches
-        # dequantize_weight(leaf, x.dtype) — rounding s first shifts
-        # weights ~1 ulp and flips near-tie argmaxes)
-        w = (q.astype(jnp.float32) * s[None, :]).astype(x2.dtype)
-        return jnp.dot(x2, w, preferred_element_type=jnp.float32)
+    """[M, K] x int8 [K, N] * s [N] -> [M, N] f32.
 
-    # pad M to the bf16 sublane multiple
-    Mp = max(-(-M // 16) * 16, 16)
-    if Mp != M:
-        x2 = jnp.pad(x2, ((0, Mp - M), (0, 0)))
-    # Block policy (measured on v5e): large blocks amortize per-grid-step
-    # overhead — decode matmuls at tiny M are pipeline-bound, so fewer,
-    # fatter DMAs win.  Keep the double-buffered weight tile under ~6 MB of
-    # VMEM; bn must be a multiple of 128.
-    def divisors_desc(dim, limit, mult):
-        return [b for b in range(min(limit, dim), 0, -mult)
-                if dim % b == 0 and b % mult == 0]
-
-    bn_opts = divisors_desc(N, 2560, 128) or [N]
-    bn = bn_opts[0]
-    budget = 6 * 1024 * 1024  # int8 bytes
-    bk = K
-    if K * bn > budget:
-        for b in divisors_desc(K, K, 128):
-            if b * bn <= budget:
-                bk = b
-                break
-        else:
-            bk = 128
-
-    out = pl.pallas_call(
-        _qmm_kernel,
-        out_shape=jax.ShapeDtypeStruct((Mp, N), jnp.float32),
-        grid=(N // bn, K // bk),
-        in_specs=[
-            pl.BlockSpec((Mp, bk), lambda n, k: (0, k),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bk, bn), lambda n, k: (k, n),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bn), lambda n, k: (0, n),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((Mp, bn), lambda n, k: (0, n),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((Mp, bn), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            vmem_limit_bytes=64 * 1024 * 1024),
-    )(x2, q, s[None, :])
-    return out[:M] if Mp != M else out
+    With ``w8a8`` and M >= _W8A8_MIN_ROWS: per-row dynamic activation
+    quant and an int8 x int8 -> int32 dot.  Otherwise the weight is
+    dequantized and multiplied in the activation dtype."""
+    if w8a8 and x2.shape[0] >= _W8A8_MIN_ROWS:
+        xf = x2.astype(jnp.float32)
+        a = jnp.maximum(jnp.max(jnp.abs(xf), axis=1, keepdims=True),
+                        1e-8) / 127.0
+        qx = jnp.round(xf / a).astype(jnp.int8)
+        y = jax.lax.dot_general(qx, q, (((1,), (0,)), ((), ())),
+                                preferred_element_type=jnp.int32)
+        return y.astype(jnp.float32) * a * s[None, :].astype(jnp.float32)
+    # f32 dequant then one round to the activation dtype (matches
+    # dequantize_weight(leaf, x.dtype) — rounding s first shifts
+    # weights ~1 ulp and flips near-tie argmaxes)
+    w = (q.astype(jnp.float32) * s[None, :]).astype(x2.dtype)
+    return jnp.dot(x2, w, preferred_element_type=jnp.float32)
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
@@ -193,11 +80,11 @@ def _qmm_fwd(x2, q, s, w8a8):
 def _qmm_bwd(w8a8, res, g):
     """dx = g @ (q*s)^T computed as (g*s) @ q^T in bf16/f32-accum.
 
-    One rule covers every forward dispatch (Pallas kernel, dequant dot,
-    W8A8 act-quant — straight-through for the round()).  Quantized
+    One rule covers both forward dispatches (dequant dot, W8A8
+    act-quant — straight-through for the round()).  Quantized
     weights are frozen by construction, so q (int8) gets a float0
     cotangent and the scale gets zeros (training the scales is
-    unsupported).  The backward dot runs the MXU in bf16 even for f32
+    unsupported).  The backward dot runs in bf16 even for f32
     cotangents — intentional: dx flows through a tower that was itself
     int8-rounded in the forward, so bf16 mantissa loss is far below the
     quantization noise floor, and an f32 dot would be ~8x slower."""
@@ -213,17 +100,18 @@ _qmm_core.defvjp(_qmm_fwd, _qmm_bwd)
 
 
 def quant_matmul(x: jnp.ndarray, leaf: QuantLeaf,
-                 out_dtype=None, w8a8: bool = True) -> jnp.ndarray:
+                 out_dtype=None, w8a8: bool = False) -> jnp.ndarray:
     """x: [..., K] bf16/f32; leaf: int8 [K, N] + scale [N] -> [..., N].
 
     Differentiable w.r.t. ``x`` on every dispatch path (custom VJP —
     required for training through frozen quantized towers, where
     activation gradients flow but weight gradients don't).
 
-    w8a8: allow the big-M (>=128 rows) dispatch to use per-row dynamic
-    activation quant + the int8 MXU (~1.9x prefill).  Default on;
-    training passes False to keep the weight-only bf16-dequant forward.
-    Env DESTA_INT8_PREFILL=0/1 force-overrides (see ``w8a8_default``)."""
+    w8a8: let matmuls of at least ``_W8A8_MIN_ROWS`` rows use per-row
+    dynamic activation quant and an int8 dot.  Off by default: on the
+    8B flagship it moves greedy tokens off the weight-only model's
+    argmax (PERF.md, PR 1), so it stays opt-in until a real-weight
+    accuracy gate admits it."""
     orig_shape = x.shape
     K = orig_shape[-1]
     N = leaf["q"].shape[1]
@@ -238,13 +126,12 @@ def quant_matmul(x: jnp.ndarray, leaf: QuantLeaf,
 
 def int8_act_matmul(x: jnp.ndarray, leaf: QuantLeaf,
                     bias=None) -> jnp.ndarray:
-    """Per-row dynamic activation quant + int8xint8 MXU dot + f32 dequant.
+    """Per-row dynamic activation quant + int8 x int8 dot + f32 dequant.
 
-    For COMPUTE-bound matmuls (the frozen encoder/connector at large M):
-    v5e int8 MXU throughput is ~2x bf16, and XLA fuses the abs-max quant
-    and scale epilogue (measured 356 vs 216 TF/s at M=12000, K=1280,
-    N=5120).  Decode-shaped (bandwidth-bound) matmuls should keep using
-    :func:`quant_matmul` — there the win is weight bytes, not FLOPs.
+    For compute-bound matmuls (the frozen encoder at large M), where the
+    int8 tensor cores run at twice the bf16 rate.  Decode-shaped
+    (bandwidth-bound) matmuls use :func:`quant_matmul` — there the win is
+    weight bytes, not FLOPs.
     """
     K = x.shape[-1]
     xf = x.reshape(-1, K).astype(jnp.float32)
@@ -276,50 +163,27 @@ def _quantize_stacked_linear(p: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def quantize_encoder_params(params: Dict[str, Any],
-                            include_attention: bool = None,
-                            attention: str = "dual") -> Dict[str, Any]:
+                            attention: str = "int8") -> Dict[str, Any]:
     """Quantize the whisper encoder's matmul weights (FFN fc1/fc2 and,
-    by default, the attention q/k/v/o projections) to int8, batched over
-    the stacked layer axis.
+    with ``attention="int8"``, the attention q/k/v/o projections) to
+    int8, batched over the stacked layer axis; ``attention="none"`` keeps
+    the attention projections in their float dtype.
 
     Conv stem, positional table, and LayerNorms stay bf16 (tiny).  The
     encoder is frozen in both training and inference (reference
     modeling_desta25.py:1439-1463), so this is a pure inference-speed
     option — enable with ``encoder_quant: int8`` (the inference default
-    via ``encoder_quant: auto``).
-
-    ``attention`` history: the r2 XLA dyn-int8 wiring of q/k/v/o
-    measured SLOWER end-to-end on v5e (175 vs 166 ms at b8 — the
-    per-op quant epilogues broke fusion around the attention kernel).
-    The r4 fused-quant kernels (ops/w8a8_proj.py, act quant in-launch)
-    reversed that at the latency shapes: encoder fwd B=1
-    18.8 (bf16) / 15.2 (ffn-only) / **13.8 ms** (ffn+attn); at b8
-    138.1 / 120.6 / **122.5 ms** (ffn+attn, scripts/ab_enc_attn_w8a8.py,
-    v5e 2026-08-19).  One arm is the wrong default for one of the two
-    shapes, so ``attention="dual"`` (the default, VERDICT r4 #3) keeps
-    BOTH the int8 copy and the original bf16 ``w`` on each attention
-    leaf (+~210 MB int8 for whisper-large-v3) and lets
-    models/whisper._enc_self_attn dispatch per runtime batch: small B
-    (TTFT) runs the fused W8A8 kernels, large B (batched serving) the
-    bf16 packed path.  ``attention="int8"`` / ``"none"`` (or the legacy
-    ``include_attention`` bool) force a single arm for A/Bs and
-    memory-constrained fleets.
+    via ``encoder_quant: auto``).  ``ops.core.linear`` runs the int8
+    leaves as W8A8 (:func:`int8_act_matmul`).
     """
-    if include_attention is not None:
-        attention = "int8" if include_attention else "none"
-    if attention not in ("dual", "int8", "none"):
+    if attention not in ("int8", "none"):
         raise ValueError(f"attention={attention!r}")
     out = dict(params)
     layers = dict(params["layers"])
-    if attention != "none":
+    if attention == "int8":
         attn = dict(layers["attn"])
         for k in ("q", "k", "v", "o"):
-            leaf = _quantize_stacked_linear(attn[k])
-            if attention == "dual":
-                # keep the bf16 weight alongside: ops.core.linear reads
-                # "w" (bf16 arm), the fused W8A8 kernels read "q"/"s"
-                leaf["w"] = attn[k]["w"]
-            attn[k] = leaf
+            attn[k] = _quantize_stacked_linear(attn[k])
         layers["attn"] = attn
     for k in ("fc1", "fc2"):
         layers[k] = _quantize_stacked_linear(layers[k])
@@ -349,10 +213,9 @@ def quantize_llm_params(params: Dict[str, Any]) -> Dict[str, Any]:
         layers[key] = jax.vmap(quantize_weight)(w)
     out["layers"] = layers
     if "lm_head" in params:
-        out["lm_head"] = quantize_weight(params["lm_head"], pad_out_to=2560)
+        out["lm_head"] = quantize_weight(params["lm_head"])
     else:
-        out["lm_head"] = quantize_weight(jnp.transpose(params["embed"]),
-                                         pad_out_to=2560)
+        out["lm_head"] = quantize_weight(jnp.transpose(params["embed"]))
     return out
 
 
@@ -362,10 +225,9 @@ def quantize_orca_cross_attns(params: Dict[str, Any]) -> Dict[str, Any]:
 
     Deep-injection decode streams every layer's q/k/v/o/gate matrices
     each step (~2.8 GB/step bf16 at the Qwen3-4B flagship) — int8 halves
-    that.  ``ops.core.linear`` dispatches the quantized leaves through
-    ``models.orca._xattn_linear`` routes the quantized leaves through
-    quant_matmul: weight-only dequant-dot at decode shapes, W8A8 at the
-    precompute/prefill shapes (M>=128).  LayerNorms and gate2 stay full
+    that.  ``models.orca._xattn_linear`` routes the quantized leaves
+    through quant_matmul (weight-only dequant-dot).  LayerNorms and gate2
+    stay full
     precision.
     Do NOT save checkpoints from a quantized tree — this is a serving
     transform, not a training state."""

@@ -2,8 +2,10 @@
 
 The reference delegates multi-process setup to torchrun + NCCL env
 handshakes (SURVEY §2.7); the JAX equivalent is
-``jax.distributed.initialize`` (auto-configured under TPU runtime env) and
-``process_index``-gated host work.  Dataset-cache barriers
+``jax.distributed.initialize`` (given the coordinator address, process
+count and process id from ``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``) and ``process_index``-gated
+host work.  Dataset-cache barriers
 (simple_dataset.py:23-38, :433) are unnecessary here — preprocessing is
 stateless — but a barrier helper is provided for host-side rendezvous
 (e.g. checkpoint directory creation).
@@ -26,8 +28,6 @@ def maybe_initialize() -> None:
     itself would initialize it."""
     coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
     n_proc = os.environ.get("JAX_NUM_PROCESSES")
-    hostnames = [h for h in os.environ.get(
-        "TPU_WORKER_HOSTNAMES", "").split(",") if h]
     try:
         if coord and n_proc and int(n_proc) > 1:
             jax.distributed.initialize(
@@ -35,11 +35,6 @@ def maybe_initialize() -> None:
                 num_processes=int(n_proc),
                 process_id=int(os.environ.get("JAX_PROCESS_ID", "0")))
             logger.info("jax.distributed initialized: process %d/%d",
-                        jax.process_index(), jax.process_count())
-        elif len(hostnames) > 1:
-            # TPU pod runtime provides discovery env vars
-            jax.distributed.initialize()
-            logger.info("jax.distributed initialized from TPU env: %d/%d",
                         jax.process_index(), jax.process_count())
     except RuntimeError as e:
         # double-init (or init after backend touch) must not kill a run

@@ -3,7 +3,7 @@
 The framework uses a 2-D GSPMD mesh with axes ``("data", "model")``:
 
 - ``data``: batch data-parallelism (the reference's DDP, SURVEY §2.7) —
-  gradient reduction happens inside pjit's partitioner over ICI;
+  XLA inserts the gradient all-reduce;
 - ``model``: tensor parallelism over attention heads / FFN hidden dim for
   the frozen 8B LLM and the Whisper encoder (a first-class feature the
   reference never had; each of its GPUs held the full model).
@@ -30,8 +30,8 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               n_pipe: int = 1) -> Mesh:
     """("data", "model") mesh, with an optional trailing "pipe" axis for
     pipeline parallelism (parallel/pipeline.py) when ``n_pipe > 1``.
-    "pipe" is the innermost axis so pipeline-neighbour transfers ride
-    adjacent ICI links."""
+    Devices are laid out in the order given; every card of a host reaches
+    every other at the same rate, so the order carries no topology."""
     devices = list(devices if devices is not None else jax.devices())
     if n_data is None:
         n_data = len(devices) // (n_model * n_pipe)

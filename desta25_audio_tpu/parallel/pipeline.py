@@ -24,12 +24,11 @@ keeps stage activation memory at one boundary tensor per tick.
 
 The reference has no pipeline (or any model) parallelism — each GPU
 holds the whole model (SURVEY §2.7); this exists for towers whose
-training state cannot fit one chip (e.g. the 8B + ORCA f32 stack,
-measured 18.5 GB single-chip).
+training state cannot fit one card.
 
-No multi-chip TPU is reachable from this environment: semantics are
-pinned on the 8-device virtual CPU mesh (tests/test_pipeline.py) and the
-driver's ``dryrun_multichip`` compiles the dp x pp train step.
+Semantics are pinned on the 8-device virtual CPU mesh
+(tests/test_pipeline.py) and ``__graft_entry__.dryrun_multichip``
+compiles the dp x pp train step.
 """
 
 from __future__ import annotations
@@ -66,13 +65,13 @@ def pipe_layer_specs(specs):
                         is_leaf=lambda x: isinstance(x, P))
 
 
-def pipeline_decoder_hidden(layers, cfg, x, mask, flash_mask, cos, sin,
+def pipeline_decoder_hidden(layers, cfg, x, kv_mask, cos, sin,
                             *, n_micro: int, remat: bool = True,
-                            w8a8: bool = True):
+                            w8a8: bool = False):
     """Run the decoder layer stack pipelined over the "pipe" mesh axis.
 
     layers: stacked layer params [L, ...], leading axis sharded P("pipe").
-    x: [B, T, D] embeddings; mask [B, 1, T, T]; flash_mask [B, T] or None;
+    x: [B, T, D] embeddings; kv_mask [B, T] 1/0 key mask;
     cos/sin: RoPE tables [B, T, ...].  Returns the pre-final-norm hidden
     [B, T, D], identical on every pipe stage.
 
@@ -93,11 +92,10 @@ def pipeline_decoder_hidden(layers, cfg, x, mask, flash_mask, cos, sin,
     def micro(a):
         return a.reshape(M, Bm, *a.shape[1:])
 
-    xm, maskm = micro(x), micro(mask)
+    xm, maskm = micro(x), micro(kv_mask)
     cosm, sinm = micro(cos), micro(sin)
-    flashm = micro(flash_mask) if flash_mask is not None else None
 
-    def body(layers, xm, maskm, flashm, cosm, sinm):
+    def body(layers, xm, maskm, cosm, sinm):
         s = jax.lax.axis_index("pipe")
         n_ticks = M + n_pipe - 1
 
@@ -105,13 +103,11 @@ def pipeline_decoder_hidden(layers, cfg, x, mask, flash_mask, cos, sin,
             mk = jax.lax.dynamic_index_in_dim(maskm, m, 0, keepdims=False)
             co = jax.lax.dynamic_index_in_dim(cosm, m, 0, keepdims=False)
             si = jax.lax.dynamic_index_in_dim(sinm, m, 0, keepdims=False)
-            fm = (jax.lax.dynamic_index_in_dim(flashm, m, 0, keepdims=False)
-                  if flashm is not None else None)
 
             def layer_step(hh, p):
                 attn_out, _ = _attention(
                     p, rms_norm(p["ln1"], hh, cfg.rms_norm_eps), co, si,
-                    mk, cfg, flash_attention_mask=fm, w8a8=w8a8)
+                    None, cfg, kv_mask=mk, w8a8=w8a8)
                 hh = hh + attn_out
                 hh = hh + _mlp(p, rms_norm(p["ln2"], hh, cfg.rms_norm_eps),
                                w8a8)
@@ -148,16 +144,8 @@ def pipeline_decoder_hidden(layers, cfg, x, mask, flash_mask, cos, sin,
     from .sharding import suspend_activation_sharding
 
     with suspend_activation_sharding():
-        if flashm is None:
-            body_nf = lambda l, a, b, c, d: body(l, a, b, None, c, d)  # noqa: E731
-            out = jax.shard_map(
-                body_nf, mesh=mesh, axis_names={"pipe"},
-                in_specs=(P("pipe"), P(), P(), P(), P()), out_specs=P(),
-            )(layers, xm, maskm, cosm, sinm)
-        else:
-            out = jax.shard_map(
-                body, mesh=mesh, axis_names={"pipe"},
-                in_specs=(P("pipe"), P(), P(), P(), P(), P()),
-                out_specs=P(),
-            )(layers, xm, maskm, flashm, cosm, sinm)
+        out = jax.shard_map(
+            body, mesh=mesh, axis_names={"pipe"},
+            in_specs=(P("pipe"), P(), P(), P(), P()), out_specs=P(),
+        )(layers, xm, maskm, cosm, sinm)
     return out.reshape(B, T, D)

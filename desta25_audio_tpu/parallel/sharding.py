@@ -1,7 +1,7 @@
 """Sharding rules: parameter partition specs + activation constraints.
 
 Parameter sharding follows the standard Megatron/GSPMD tensor-parallel
-layout (SURVEY §2.7 "TPU-native equivalent"):
+layout (SURVEY §2.7):
 
 - attention: wq/wk/wv sharded on the output (head) dim, wo on the input;
 - MLP: w_gate/w_up on the output (ffn) dim, w_down on the input;
@@ -174,11 +174,11 @@ def fsdp_partition_specs(params, axis: str = "data",
     at its point of use in the forward and reduce-scatters its gradient
     in the backward — params and grads shrink by the "data" axis size
     per chip (adafactor's factored stats are tiny; for optimizers with
-    full moments, jit keeps update math on the sharded layout).  This is
-    what lets the
-    8B+ORCA flagship (9.1 GB xattn params + grads, docs/perf_roofline.md
-    §4) fit a v5e pod slice.  The reference is DDP-only (SURVEY §2.7:
-    every GPU holds full params + optimizer state)."""
+    full moments, jit keeps update math on the sharded layout).  The
+    largest trainable state of this model family is the 8B+ORCA f32
+    cross-attention stack (9.1 GB params + 9.1 GB grads).  The reference
+    is DDP-only (SURVEY §2.7: every GPU holds full params + optimizer
+    state)."""
     mesh = current_mesh()
     if (mesh is None or axis not in mesh.axis_names
             or mesh.shape[axis] <= 1):

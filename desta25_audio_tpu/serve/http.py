@@ -1,11 +1,11 @@
 """HTTP front-end for the continuous-batching engine.
 
 Stdlib-only (``http.server`` + threads — the image has no
-uvicorn/fastapi, and the hot path is the TPU program anyway: the server
-just moves requests into the engine and results out).  The reference
-has no serving stack at all (its generate() is a blocking HF call,
-modeling_desta25.py:1419-1427); this is the TPU-native framework's
-production surface on top of ``ContinuousBatchingEngine``.
+uvicorn/fastapi, and the hot path is the device program anyway: the
+server just moves requests into the engine and results out).  The
+reference has no serving stack at all (its generate() is a blocking HF
+call, modeling_desta25.py:1419-1427); this is the framework's production
+surface on top of ``ContinuousBatchingEngine``.
 
 API (JSON in/out):
 
@@ -239,7 +239,7 @@ def _oai_finish(reason: str) -> str:
 def make_handler(server: EngineServer, tokenizer):
     model_name = getattr(getattr(server.engine, "model", None), "config",
                          None)
-    model_name = getattr(model_name, "llm_model_id", "desta25-audio-tpu")
+    model_name = getattr(model_name, "llm_model_id", "desta25-audio")
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"

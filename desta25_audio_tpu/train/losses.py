@@ -44,7 +44,7 @@ def masked_lm_loss_chunked(llm_params, llm_cfg, hidden: jnp.ndarray,
     [B, T, V] logits.
 
     At flagship training scale (B=12, T=300, V=128k) full f32 logits are
-    1.84 GB — plus their gradient — which alone overflows a 16 GB chip.
+    1.84 GB, plus their gradient, for nothing the loss needs.
     This variant scans the LM head + log-softmax over ``chunk``-token
     slices of the (shifted) sequence under ``jax.checkpoint``: forward
     and backward only ever hold one chunk's logits (~100-400 MB).  The

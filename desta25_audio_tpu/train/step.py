@@ -90,8 +90,8 @@ def _forward(params: Dict[str, Any], batch: Dict[str, jnp.ndarray],
             trans_pos_mask=trans_pos_mask, training=training)
 
     # skip_head + chunked CE: the full [B, T, 128k] f32 logits (plus
-    # their cotangent) alone overflow one 16 GB chip at flagship scale;
-    # the head + log-softmax run per sequence chunk instead.
+    # their cotangent) are ~3.7 GB at flagship scale; the head +
+    # log-softmax run per sequence chunk instead.
     out = jllm.llm_apply(
         params["llm"], llm_cfg,
         inputs_embeds=inputs_embeds,
@@ -112,10 +112,9 @@ def _forward(params: Dict[str, Any], batch: Dict[str, jnp.ndarray],
         # Megatron-style sequence parallelism (seq-sharded residual
         # stream over "model"; no-op off-mesh)
         sequence_parallel=sequence_parallel,
-        # training keeps the weight-only bf16-dequant forward: W8A8
-        # act-quant noise in the frozen tower would perturb the
-        # connector's learning signal with no training-speed upside
-        # worth that risk (quant.py w8a8_default)
+        # training keeps the weight-only dequant forward: W8A8 act-quant
+        # noise in the frozen tower would perturb the connector's
+        # learning signal
         w8a8=False,
     )
     if extra_aux_init is not None:

@@ -7,7 +7,7 @@ zero loss, loss decomposition logging, eval loop with generation +
 ConsecutiveWordsAccuracy + per-category report JSON (config dump + git
 commit), epoch checkpoints, auto-resume from ``checkpoint-latest``.
 
-TPU-native: one jitted train step (data-parallel over the active mesh);
+One jitted train step (data-parallel over the active mesh);
 metrics are fetched asynchronously (host logging never blocks the device
 stream more than once per log interval).
 """

@@ -22,14 +22,14 @@ def run(cmd: str, check: bool = True) -> str:
 def resolve_filepath(path: str, cache_dir: Optional[str] = None) -> str:
     """Resolve a local path or URL to a local file.
 
-    URLs are downloaded to ``cache_dir`` (or ~/.cache/desta25_tpu) — only
+    URLs are downloaded to ``cache_dir`` (or ~/.cache/desta25_audio) — only
     when network egress exists; in sealed environments a clear error is
     raised instead of a silent hang."""
     if not path.startswith(("http://", "https://")):
         if not os.path.exists(path):
             raise FileNotFoundError(path)
         return path
-    cache_dir = cache_dir or os.path.expanduser("~/.cache/desta25_tpu")
+    cache_dir = cache_dir or os.path.expanduser("~/.cache/desta25_audio")
     os.makedirs(cache_dir, exist_ok=True)
     local = os.path.join(cache_dir, os.path.basename(path.split("?")[0]))
     if os.path.exists(local):

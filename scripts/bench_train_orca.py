@@ -1,44 +1,37 @@
-"""ORCA-hybrid flagship train step on one v5e (VERDICT r2 weak #5).
+"""ORCA-hybrid flagship train step on one GPU.
 
-Same geometry as the Q-Former flagship bench (b12, seq300, 8B int8
-frozen, remat, adafactor) but with the ORCA hybrid connector + gated
+Same geometry as the Q-Former flagship bench (b12, seq300, frozen bf16
+tower, remat, adafactor) but with the ORCA hybrid connector + gated
 cross-attention deep injection after every LLM layer — the per-layer
-cross-attn activations ride the 8B backprop, changing the remat
-economics.  Reports step time, samples/s, and HBM analysis (does it
-fit?).
+cross-attn activations ride the tower's backprop, changing the remat
+economics.  Reports step time, samples/s, and the step's memory
+analysis.
 
-Run on TPU: python scripts/bench_train_orca.py [batch]
+    python scripts/bench_train_orca.py [batch]
 """
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
-
 import jax
-import jax.numpy as jnp
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.environ["JAX_COMPILATION_CACHE_DIR"])
-sys.path.insert(0, "/root/repo")
-
 import numpy as np
 
-from desta25_audio_tpu.train.bench_utils import (
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from desta25_audio_tpu.train.bench_utils import (  # noqa: E402
     build_flagship_train_setup,
     hbm_analysis,
+)
+from desta25_audio_tpu.utils.compilation_cache import (  # noqa: E402
+    setup_compilation_cache,
 )
 
 
 def main():
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 12
-    f0 = jax.jit(lambda v: v + 1)
-    float(f0(jnp.float32(0)))
-    t0 = time.time()
-    for _ in range(5):
-        float(f0(jnp.float32(0)))
-    rtt = (time.time() - t0) / 5
-    print(f"rtt {rtt*1e3:.1f} ms  batch {B}")
+    setup_compilation_cache()
+    print(f"batch {B} on {jax.devices()[0].device_kind}")
 
     t0 = time.time()
     cfg, step, trainable, frozen, opt_state, batch = \
@@ -61,16 +54,16 @@ def main():
     best = None
     for _ in range(4):
         t0 = time.time()
-        trainable, opt_state, m = step(trainable, frozen, opt_state,
-                                       batch)
+        trainable, opt_state, m = jax.block_until_ready(
+            step(trainable, frozen, opt_state, batch))
         lm = float(m["lm_loss"])
-        dt = time.time() - t0 - rtt
+        dt = time.time() - t0
         print(f"timed: lm={lm:.3f} grad_norm={float(m['grad_norm']):.3f} "
               f"{dt*1e3:.0f} ms")
         best = dt if best is None else min(best, dt)
     assert np.isfinite(lm)
     print(f"ORCA train step: {best*1e3:.0f} ms -> "
-          f"{B/best:.2f} samples/s/chip")
+          f"{B/best:.2f} samples/s")
 
 
 if __name__ == "__main__":

@@ -62,7 +62,7 @@ def main():
     from desta25_audio_tpu.models.desta import DeSTA25AudioModel
     from desta25_audio_tpu.models.qformer import qformer_connector_apply
 
-    os.environ.setdefault("DESTA_TPU_WEIGHTS", args.weights)
+    os.environ.setdefault("DESTA_WEIGHTS", args.weights)
     model = DeSTA25AudioModel.from_pretrained(args.model_dir,
                                               weights_root=args.weights)
     cfg = model.config

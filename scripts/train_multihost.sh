@@ -1,18 +1,14 @@
 #!/bin/bash
-# Multi-host TPU launch (pod slice or SLURM), with auto-resume.
+# Multi-host GPU launch (SLURM or any scheduler), with auto-resume.
 #
-# TPU-native replacement for the reference's torchrun sbatch scripts
-# (run_desta_qwen3_4b.sbatch:69-81): one copy of this script runs per host
-# of a slice; jax.distributed discovers peers either from the TPU pod
-# runtime env (TPU_WORKER_HOSTNAMES — nothing to set on Cloud TPU VMs) or
-# from explicit JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-# JAX_PROCESS_ID (any scheduler; set from SLURM vars below when present).
+# Replacement for the reference's torchrun sbatch scripts
+# (run_desta_qwen3_4b.sbatch:69-81): one copy of this script runs per
+# host, driving all of that host's GPUs from one process;
+# jax.distributed joins the hosts through JAX_COORDINATOR_ADDRESS /
+# JAX_NUM_PROCESSES / JAX_PROCESS_ID (set from SLURM vars below when
+# present; set them yourself under another scheduler).
 #
-# Cloud TPU pod usage (runs on every host of the slice):
-#   gcloud compute tpus tpu-vm ssh $TPU_NAME --worker=all \
-#       --command="cd /repo && bash scripts/train_multihost.sh"
-#
-# SLURM usage: sbatch scripts/train_v5e.sbatch  (wraps this script)
+# SLURM usage: srun --ntasks-per-node=1 bash scripts/train_multihost.sh
 set -euo pipefail
 
 REPO_DIR="$(cd "$(dirname "$0")/.." && pwd)"

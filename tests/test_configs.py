@@ -75,3 +75,22 @@ def test_turbo_preset_shares_encoder_with_large_v3():
     assert turbo.decoder_layers == 4  # the distilled decoder
     assert TARGET_LAYER_IDS["openai/whisper-large-v3-turbo"] == \
         TARGET_LAYER_IDS["openai/whisper-large-v3"]
+
+
+@pytest.mark.parametrize("enc_layers,taps", [(None, (7, 15, 23, 31)),
+                                             (8, (1, 3, 5, 7)),
+                                             (4, (0, 1, 2, 3))])
+def test_depth_cut_keeps_widths_and_tap_depths(enc_layers, taps):
+    cfg = DeSTA25Config(llm_num_hidden_layers=4,
+                        encoder_num_layers=enc_layers)
+    full = DeSTA25Config()
+    assert cfg.llm_config.num_hidden_layers == 4
+    assert cfg.llm_config.hidden_size == full.llm_config.hidden_size
+    assert cfg.encoder_config.d_model == full.encoder_config.d_model
+    assert cfg.encoder_config.encoder_layers == (enc_layers or 32)
+    assert cfg.target_layer_ids == taps
+
+
+def test_depth_cut_below_tap_count_raises():
+    with pytest.raises(ValueError, match="connector taps"):
+        DeSTA25Config(encoder_num_layers=3).target_layer_ids

@@ -133,8 +133,8 @@ def test_stage_and_from_pretrained_nano(tmp_path):
     mid = stage_checkpoint(src, root, model_id="test/llama-nano", int8=True)
     assert mid == "test/llama-nano"
     d = os.path.join(root, "test/llama-nano")
-    assert os.path.exists(os.path.join(d, "desta_tpu.safetensors"))
-    assert os.path.exists(os.path.join(d, "desta_tpu_int8.safetensors"))
+    assert os.path.exists(os.path.join(d, "desta_native.safetensors"))
+    assert os.path.exists(os.path.join(d, "desta_native_int8.safetensors"))
 
     mcfg = DeSTA25Config(
         llm_model_id="test/llama-nano",

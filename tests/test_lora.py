@@ -84,7 +84,7 @@ def test_yaml_lora_fields():
 def test_merge_lora_matches_adapter_forward(rng):
     """peft merge_and_unload equivalent: merged weights reproduce the
     adapter forward (inference has no dropout), and the merged tree
-    quantizes into the fused decode path."""
+    int8-quantizes for serving."""
     import jax
     import jax.numpy as jnp
     import numpy as np

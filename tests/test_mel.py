@@ -28,7 +28,7 @@ def test_log_mel_matches_hf(rng, n_mels):
     )
     # note: HF pads each to 30 s internally; ours pads via pad_or_trim.
     assert got.shape == ref.shape
-    # f32 TPU path: tight in the mean; bounded worst case at near-floor bins
+    # f32 device path: tight in the mean; bounded worst case at near-floor bins
     # (HF computes the STFT in float64 — see log_mel_np_precise docstring).
     diff = np.abs(got - ref)
     assert diff.mean() < 5e-4
@@ -61,3 +61,20 @@ def test_power_spectrogram_matches_npfft(rng):
     frames = np.stack([padded[i * 160:i * 160 + 400] for i in range(3000)])
     spec = np.abs(np.fft.rfft(frames * window, axis=-1)) ** 2
     assert np.max(np.abs(got[0] - spec)) / (np.max(spec) + 1e-9) < 1e-5
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_log_mel_matches_f64_host_reference(rng, n_mels):
+    """The device frontend (log_mel, float32 DFT-as-matmul at HIGHEST
+    precision) on full 30 s clips against the float64 numpy path."""
+    import jax.numpy as jnp
+    n = melmod.N_SAMPLES
+    t = np.arange(n) / 16000.0
+    audio = (0.3 * rng.standard_normal((2, n))).astype(np.float32)
+    audio[0] += 0.5 * np.sin(2 * np.pi * 523.0 * t).astype(np.float32)
+    audio[1, n // 2:] = 0.0   # silent half: bins at the clamp floor
+    got = np.asarray(melmod.log_mel(jnp.asarray(audio), n_mels,
+                                    layout="bmt"))
+    ref = melmod.log_mel_np_precise(audio, n_mels)
+    assert got.shape == ref.shape == (2, n_mels, melmod.N_FRAMES)
+    assert np.abs(got - ref).max() < 1e-4

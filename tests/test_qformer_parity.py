@@ -127,13 +127,9 @@ def test_dyn_int8_linear_close(rng):
     assert err < 0.03, err
 
 
-@__import__("pytest").mark.skipif(
-    __import__("os").environ.get("DESTA_TEST_TPU") != "1",
-    reason="TPU-only (DESTA_TEST_TPU=1): connector W8A8 dispatch")
-def test_qformer_w8a8_close_on_tpu():
-    """The inference connector path (w8a8=True, engaged on TPU at
-    M >= 4096 rows) must stay close to the bf16 path at flagship-ish
-    shapes."""
+def test_qformer_w8a8_close():
+    """The inference connector path (w8a8=True: dynamic-int8 cross K/V
+    projections) must stay close to the bf16 path."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -150,9 +146,8 @@ def test_qformer_w8a8_close_on_tpu():
     d_enc = cfg.encoder_config.d_model
     params = init_qformer_connector(jax.random.PRNGKey(0), cfg,
                                     dtype=jnp.bfloat16)
-    # big enough T_enc that rows = B*T >= 4096 engages the int8 path
     taps = jax.random.normal(jax.random.PRNGKey(1),
-                             (n_taps, 2, 2048, d_enc), jnp.bfloat16)
+                             (n_taps, 2, 256, d_enc), jnp.bfloat16)
     ref = np.asarray(qformer_connector_apply(params, taps, cfg,
                                              w8a8=False), np.float32)
     got = np.asarray(qformer_connector_apply(params, taps, cfg,

@@ -1,5 +1,5 @@
-"""Weight-only int8 quantization tests (XLA fallback path on CPU; the
-Pallas kernel itself is exercised on TPU by bench.py)."""
+"""int8 quantization tests: weight-only dequant-dot, W8A8, encoder and
+LLM trees."""
 
 import numpy as np
 import pytest
@@ -114,8 +114,6 @@ def test_quantized_encoder_close(rng):
                             (2, enc_cfg.expected_mel_frames,
                              enc_cfg.num_mel_bins), jnp.float32)
     ref, taps_ref = jw.whisper_encoder_apply(ep, mel, enc_cfg, (0,))
-    # pure-int8 attention arm (attention="dual" would read the bf16 "w"
-    # copies through ops.core.linear on CPU and test nothing)
     qp = quantize_encoder_params(ep, attention="int8")
     got, taps = jw.whisper_encoder_apply(qp, mel, enc_cfg, (0,))
     assert got.shape == ref.shape and taps.shape == taps_ref.shape
@@ -136,12 +134,8 @@ def test_encoder_quant_config_wiring():
     lay = m.params["whisper"]["encoder"]["layers"]
     assert "q" in lay["fc1"] and "w" not in lay["fc1"]
     assert lay["fc1"]["q"].dtype == jnp.int8
-    # attention projections carry DUAL leaves (VERDICT r4 #3): the int8
-    # copy for the fused W8A8 kernels at small batch (B=1 encoder
-    # 15.2 -> 13.8 ms) AND the bf16 "w" for the packed path at batch
-    # (b8 120.6 vs 122.5 ms) — models/whisper._enc_self_attn dispatches
-    # on the runtime batch.
-    assert "q" in lay["attn"]["q"] and "w" in lay["attn"]["q"]
+    # attention projections are int8 too (W8A8 through ops.core.linear)
+    assert "q" in lay["attn"]["q"] and "w" not in lay["attn"]["q"]
     assert lay["attn"]["q"]["q"].dtype == jnp.int8
     # generate still runs end-to-end on the quantized encoder
     out = m.generate(messages=[{"role": "user", "content": "hi"}],
@@ -149,37 +143,12 @@ def test_encoder_quant_config_wiring():
     assert len(out.text) == 1
 
 
-def test_dual_attention_bf16_arm_is_exact(rng):
-    """attention="dual" must be a pure superset: wherever the dispatch
-    picks the bf16 arm (any CPU path; TPU at B > crossover), outputs are
-    bit-identical to the unquantized encoder's attention (only the FFN
-    differs, by int8 error)."""
-    from desta25_audio_tpu.config import DeSTA25Config
-    from desta25_audio_tpu.models import whisper as jw
-    from desta25_audio_tpu.ops.quant import quantize_encoder_params
-    cfg = DeSTA25Config(llm_model_id="test/llama-nano",
-                        encoder_model_id="test/whisper-nano")
-    enc_cfg = cfg.encoder_config
-    ep = jw.init_whisper_encoder(jax.random.PRNGKey(0), enc_cfg,
-                                 dtype=jnp.float32)
-    mel = jax.random.normal(jax.random.PRNGKey(1),
-                            (2, enc_cfg.expected_mel_frames,
-                             enc_cfg.num_mel_bins), jnp.float32)
-    dual = quantize_encoder_params(ep, attention="dual")
-    ffn_only = quantize_encoder_params(ep, attention="none")
-    got, _ = jw.whisper_encoder_apply(dual, mel, enc_cfg, (0,))
-    want, _ = jw.whisper_encoder_apply(ffn_only, mel, enc_cfg, (0,))
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-@pytest.mark.skipif(
-    __import__("os").environ.get("DESTA_TEST_TPU") != "1",
-    reason="TPU-only (DESTA_TEST_TPU=1): full-scale int8 encoder numerics")
-def test_full_scale_int8_encoder_close_on_tpu():
-    """VERDICT r4 #4: the complete int8 encoder (W8A8 fused FFN +
-    attention kernels, whisper-large-v3 shapes) must stay close to bf16
-    before the runbook benchmarks it against the reference's bf16 MMAU
-    65.21 — the analogue of the W8A8-prefill closeness gate."""
+@pytest.mark.chip
+def test_full_scale_int8_encoder_close(chip):
+    """The complete int8 encoder (W8A8 FFN and attention projections,
+    whisper-large-v3 shapes) must stay close to bf16 before the runbook
+    benchmarks it against the reference's bf16 MMAU 65.21 — the analogue
+    of the W8A8-prefill closeness gate."""
     from desta25_audio_tpu.config import DeSTA25Config
     from desta25_audio_tpu.models import whisper as jw
     from desta25_audio_tpu.ops.quant import quantize_encoder_params
@@ -202,8 +171,7 @@ def test_full_scale_int8_encoder_close_on_tpu():
         return out.astype(jnp.float32), tp.astype(jnp.float32)
 
     ref, taps_ref = jax.jit(run)(ep)
-    # B=1 routes the fused W8A8 attention kernels (dual dispatch)
-    qp = jax.jit(lambda p: quantize_encoder_params(p, attention="dual"))(ep)
+    qp = jax.jit(quantize_encoder_params)(ep)
     got, taps_got = jax.jit(run)(qp)
     for g, r in ((got, ref), (taps_got, taps_ref)):
         g, r = np.asarray(g, np.float32), np.asarray(r, np.float32)
@@ -268,15 +236,10 @@ def test_from_pretrained_config_overrides(tmp_path):
     assert "w" in loaded.params["whisper"]["encoder"]["layers"]["fc1"]
 
 
-@pytest.mark.skipif(
-    __import__("os").environ.get("DESTA_TEST_TPU") != "1",
-    reason="TPU-only (DESTA_TEST_TPU=1): W8A8 prefill dispatch")
-def test_w8a8_prefill_close_on_tpu(rng, monkeypatch):
-    """DESTA_INT8_PREFILL=1 routes big-M quant matmuls through the
-    activation-quant int8 MXU path; prefill logits must stay close to
-    the weight-only bf16-dequant path."""
-    import os
-
+def test_w8a8_prefill_close(rng):
+    """w8a8=True routes big-M quant matmuls through the activation-quant
+    int8 dot; prefill logits must stay close to the weight-only
+    dequant path."""
     from desta25_audio_tpu.config import LLMConfig
     from desta25_audio_tpu.models import llm as jllm
     from desta25_audio_tpu.ops.core import tree_cast
@@ -290,18 +253,17 @@ def test_w8a8_prefill_close_on_tpu(rng, monkeypatch):
         qk_norm=False, bos_token_id=0, eos_token_id=1)
     params = jllm.init_llm(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
     qp = quantize_llm_params(tree_cast(params, jnp.bfloat16))
-    B, T = 4, 96  # M = 384 > 256 -> the W8A8 branch engages
+    B, T = 4, 96  # M = 384 >= 128 -> the W8A8 branch engages
     ids = jnp.asarray(rng.integers(2, 500, size=(B, T)), jnp.int32)
 
-    def prefill():
+    def prefill(w8a8):
         lg, _, _ = jllm.llm_apply(qp, cfg, input_ids=ids,
                                   attention_mask=jnp.ones((B, T),
-                                                          jnp.int32))
+                                                          jnp.int32),
+                                  w8a8=w8a8)
         return np.asarray(lg, np.float32)
 
-    monkeypatch.setenv("DESTA_INT8_PREFILL", "0")
-    ref = prefill()
-    monkeypatch.setenv("DESTA_INT8_PREFILL", "1")
-    got = prefill()
+    ref = prefill(False)
+    got = prefill(True)
     err = np.max(np.abs(ref - got)) / (np.abs(ref).max() + 1e-6)
     assert err < 5e-2, err

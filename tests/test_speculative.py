@@ -1,5 +1,6 @@
 """Speculative greedy decoding: drafting, acceptance, and trajectory
-equality with plain greedy decode (interpret-mode fused kernels on CPU)."""
+equality with plain greedy decode (the T=Kd verify runs through
+``llm_apply``'s cached path)."""
 
 import numpy as np
 import pytest
@@ -56,7 +57,7 @@ def test_ngram_propose_trigram_disambiguates():
 
 def _nano_cfg():
     return LLMConfig(
-        model_id="test/fused-nano", vocab_size=512, hidden_size=512,
+        model_id="test/spec-nano", vocab_size=512, hidden_size=512,
         intermediate_size=768, num_hidden_layers=2, num_attention_heads=4,
         num_key_value_heads=2, head_dim=128, rms_norm_eps=1e-5,
         rope_theta=10000.0, rope_scaling=None, tie_word_embeddings=False,
@@ -64,11 +65,9 @@ def _nano_cfg():
 
 
 @pytest.mark.parametrize("kd", [2, 4])
-def test_spec_trajectory_equals_plain_greedy(kd, rng, monkeypatch):
+def test_spec_trajectory_equals_plain_greedy(kd, rng):
     """The speculative loop must emit EXACTLY the plain greedy trajectory
     (acceptance compares drafts against the verify pass's own argmax)."""
-    monkeypatch.setenv("DESTA_FUSED_DECODE", "1")
-    monkeypatch.setenv("DESTA_FUSED_INTERPRET", "1")
     cfg = _nano_cfg()
     params = jllm.init_llm(jax.random.PRNGKey(7), cfg, dtype=jnp.float32)
     qp = quantize_llm_params(tree_cast(params, jnp.bfloat16))
@@ -77,9 +76,7 @@ def test_spec_trajectory_equals_plain_greedy(kd, rng, monkeypatch):
     embeds = qp["embed"][ids]
     amask = jnp.ones((B, T), jnp.int32)
     # no eos in range: the nano model never emits id 1 reliably; the
-    # eos early-stop variant runs on the kd=4 param only (interpret-mode
-    # kernel steps are ~1 s each — splitting the variants across params
-    # keeps both paths covered at half the suite cost)
+    # eos early-stop variant runs on the kd=4 param only
     variants = ((),) if kd == 2 else ((int(np.asarray(ids)[0, 0]),),)
     for eos_ids in variants:
         ref, ref_n = llm_generate(
@@ -98,14 +95,12 @@ def test_spec_trajectory_equals_plain_greedy(kd, rng, monkeypatch):
             assert r[b, :n].tolist() == g[b, :n].tolist(), (eos_ids, b)
 
 
-def test_spec_sampled_tiny_temperature_matches_greedy(rng, monkeypatch):
+def test_spec_sampled_tiny_temperature_matches_greedy(rng):
     """Token-matching speculative SAMPLING: at temperature -> 0 every
     per-position draw collapses to the argmax, so the sampled spec loop
     must reproduce the greedy spec trajectory exactly — this pins the
     coupling wiring (per-position keys, acceptance on sampled tokens,
     sampled tok0) without a flaky statistical assertion."""
-    monkeypatch.setenv("DESTA_FUSED_DECODE", "1")
-    monkeypatch.setenv("DESTA_FUSED_INTERPRET", "1")
     cfg = _nano_cfg()
     params = jllm.init_llm(jax.random.PRNGKey(7), cfg, dtype=jnp.float32)
     qp = quantize_llm_params(tree_cast(params, jnp.bfloat16))
@@ -126,9 +121,7 @@ def test_spec_sampled_tiny_temperature_matches_greedy(rng, monkeypatch):
     assert np.array_equal(np.asarray(ref), np.asarray(got))
 
 
-def test_spec_sampled_requires_key(monkeypatch):
-    monkeypatch.setenv("DESTA_FUSED_DECODE", "1")
-    monkeypatch.setenv("DESTA_FUSED_INTERPRET", "1")
+def test_spec_sampled_requires_key():
     cfg = _nano_cfg()
     params = jllm.init_llm(jax.random.PRNGKey(7), cfg, dtype=jnp.float32)
     qp = quantize_llm_params(tree_cast(params, jnp.bfloat16))
@@ -140,11 +133,9 @@ def test_spec_sampled_requires_key(monkeypatch):
             do_sample=True)
 
 
-def test_spec_accepts_multiple_tokens_on_repetitive_text(monkeypatch):
+def test_spec_accepts_multiple_tokens_on_repetitive_text():
     """On a context that the model continues repetitively, the loop should
     finish in fewer verify steps than tokens (acceptance > 1/step)."""
-    monkeypatch.setenv("DESTA_FUSED_DECODE", "1")
-    monkeypatch.setenv("DESTA_FUSED_INTERPRET", "1")
     cfg = _nano_cfg()
     params = jllm.init_llm(jax.random.PRNGKey(9), cfg, dtype=jnp.float32)
     qp = quantize_llm_params(tree_cast(params, jnp.bfloat16))
@@ -163,17 +154,15 @@ def test_spec_accepts_multiple_tokens_on_repetitive_text(monkeypatch):
     assert int(np.asarray(n)[0]) == MAX_NEW
     # acceptance must beat 1 token/step on a cyclic continuation (exact
     # trajectory equality vs the sequential loop is NOT asserted here:
-    # near-tie argmaxes may resolve differently between the in-register
-    # draft block and the streamed-cache path — see module docstring)
+    # near-tie argmaxes may resolve differently between the T=Kd verify
+    # and the T=1 step — see the generate/speculative.py docstring)
     assert int(np.asarray(steps)) < MAX_NEW - 1, (
         int(np.asarray(steps)), np.asarray(out))
 
 
-def test_generate_speculative_e2e(monkeypatch, tmp_path):
+def test_generate_speculative_e2e(tmp_path):
     """model.generate(speculative_k=4) through the audio pipeline: output
-    must match plain greedy generate (int8 nano LLM, interpret kernels)."""
-    monkeypatch.setenv("DESTA_FUSED_DECODE", "1")
-    monkeypatch.setenv("DESTA_FUSED_INTERPRET", "1")
+    must match plain greedy generate (int8 nano LLM)."""
     from desta25_audio_tpu import DeSTA25AudioModel, DeSTA25Config
     from desta25_audio_tpu.audio.io import write_wav
 

@@ -5,7 +5,7 @@ use_mesh+apply_sharding plumbing the sharding tests drive.
 Covers: mesh construction from TrainerConfig, frozen-tower tensor
 parallelism, batch "data"-sharding, ZeRO-3 fsdp sharding of trainable
 params + optimizer state, and numerical equality with the single-device
-trainer.  Reference is DDP-only (SURVEY §2.7); this is the TPU-native
+trainer.  Reference is DDP-only (SURVEY §2.7); this is a
 superset.
 """
 
